@@ -1,0 +1,183 @@
+"""Build, load and launch the hand-written Hopper kernels in ``csrc/``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, the first time a kernel is
+launched, and loaded with ``ctypes``. The library goes to
+``lfsr_tpu_torch/_build/`` (git-ignored) under a name that hashes the
+sources, so an edited source rebuilds and an unchanged one is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code. Nothing
+here imports or initialises CUDA at import time: the CPU tests import
+every module.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (each returns a cudaError_t as int)
+_SIGNATURES = {
+    # u, dbc, wdt, bdt, A, D, y, B, L, Di, R, N, dtype, stream
+    "lfsr_scan_proj": [_P] * 7 + [_I] * 6 + [_P],
+    # x, gamma, beta, out, B, H, W, C, eps, dtype, stream
+    "lfsr_cross_scan_gather": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    # seq, x, w, scale, out, B, H, W, C, dtype, stream
+    "lfsr_cross_scan_scatter": [_P] * 5 + [_I] * 5 + [_P],
+    # x, wqkv, wout, ln_g, ln_b, bias, scale, y, B, H, W, C, ws, heads,
+    # qscale, eps, dtype, stream
+    "lfsr_window_mha": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the Hopper "
+        "kernels are built from lfsr_tpu_torch/csrc at first use"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblfsr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library (no-op if it exists).
+
+    ``verbose`` adds ``-Xptxas -v`` and prints nvcc's report (registers,
+    shared memory and spills per kernel)."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose:
+        print(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.lfsr_error_string.argtypes = [ctypes.c_int]
+        handle.lfsr_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call a C entry point; raise if it reports a CUDA error."""
+    handle = lib()
+    err = getattr(handle, name)(*args)
+    if err != 0:
+        msg = handle.lfsr_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# kernel / plain-twin dispatch
+# --------------------------------------------------------------------------
+
+# Test-only switch: run every wrapper's plain twin even on CUDA tensors, so
+# a whole forward can be compared kernel-vs-twin on the card. Never set by
+# the package itself.
+_FORCE_PLAIN = False
+
+
+@contextlib.contextmanager
+def force_plain():
+    """Within this block every kernel wrapper runs its plain twin."""
+    global _FORCE_PLAIN
+    prev, _FORCE_PLAIN = _FORCE_PLAIN, True
+    try:
+        yield
+    finally:
+        _FORCE_PLAIN = prev
+
+
+def use_plain(t: torch.Tensor) -> bool:
+    """True when a wrapper must take its plain twin: the tensor lies on the
+    CPU (or the test-only :func:`force_plain` is active). A CUDA tensor
+    returns False — the wrapper then launches its kernel or raises."""
+    if t.device.type == "cpu" or _FORCE_PLAIN:
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def check(t: torch.Tensor, name: str, shape=None, dtype=None, device=None):
+    """Validate a kernel operand: CUDA, contiguous, dtype, shape."""
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counter (``fn.launches``)."""
+    fn.launches = 0
+    return fn

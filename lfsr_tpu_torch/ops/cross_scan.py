@@ -1,0 +1,107 @@
+"""K4 / K5 — the 4-way cross-scan permutation around the shared Mamba.
+
+Port of lfsr_tpu/ops/pallas_layout.py::cross_scan_gather (K4) and
+::cross_scan_scatter (K5). Channel quarters 0..3 of an [B, H, W, C] map
+read the raster row-major, reversed row-major, column-major and reversed
+column-major.
+
+- ``cross_scan_gather(x, gamma, beta)``: permute into [B, H*W, C] and
+  apply LayerNorm over C (flax fast-variance form, eps 1e-6).
+- ``cross_scan_scatter(seq, x, w, scale)``: inverse permutation, 1x1 C x C
+  mix ``w`` ([C_in, C_out]), then ``x + scale * y``.
+
+On CUDA tensors the wrappers launch the kernels in csrc/cross_scan.cu; on
+CPU tensors they run the plain twins (ports of the ``_ref`` functions).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lfsr_tpu_torch.ops import _cuda
+
+EPS = 1e-6
+
+
+def layer_norm_fast(x: torch.Tensor, gamma, beta, eps: float = EPS) -> torch.Tensor:
+    """flax LayerNorm over the last axis: float32 statistics with the
+    fast-variance form max(E[x^2] - E[x]^2, 0); returns float32."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean, 0.0)
+    return (xf - mean) * (torch.rsqrt(var + eps) * gamma.float()) + beta.float()
+
+
+def _permute(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> the 4-way cross-scan sequence [B, H*W, C]."""
+    b, h, w, c = x.shape
+    g = c // 4
+    s0 = x[..., :g].reshape(b, h * w, g)
+    s1 = x[..., g : 2 * g].reshape(b, h * w, g).flip(1)
+    s2 = x[..., 2 * g : 3 * g].transpose(1, 2).reshape(b, h * w, g)
+    s3 = x[..., 3 * g :].transpose(1, 2).reshape(b, h * w, c - 3 * g).flip(1)
+    return torch.cat([s0, s1, s2, s3], dim=-1)
+
+
+def _unpermute(seq: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Inverse of :func:`_permute`: [B, H*W, C] -> [B, H, W, C]."""
+    b, _, c = seq.shape
+    g = c // 4
+    r0 = seq[..., :g].reshape(b, h, w, g)
+    r1 = seq[..., g : 2 * g].flip(1).reshape(b, h, w, g)
+    r2 = seq[..., 2 * g : 3 * g].reshape(b, w, h, g).transpose(1, 2)
+    r3 = seq[..., 3 * g :].flip(1).reshape(b, w, h, c - 3 * g).transpose(1, 2)
+    return torch.cat([r0, r1, r2, r3], dim=-1)
+
+
+def cross_scan_gather_plain(x, gamma, beta):
+    """Plain twin of K4 (``cross_scan_gather_ref``)."""
+    return layer_norm_fast(_permute(x), gamma, beta).to(x.dtype)
+
+
+def cross_scan_scatter_plain(seq, x, w, scale):
+    """Plain twin of K5 (``cross_scan_scatter_ref``): the mix runs in w's
+    dtype, the residual in float32."""
+    b, h, wd, c = x.shape
+    y = _unpermute(seq, h, wd).to(w.dtype) @ w
+    return (x.float() + scale.float() * y.float()).to(x.dtype)
+
+
+@_cuda.counted
+def cross_scan_gather(x, gamma, beta):
+    """K4: x [B, H, W, C] -> LayerNorm(4-way permuted x) [B, H*W, C]."""
+    if _cuda.use_plain(x):
+        return cross_scan_gather_plain(x, gamma, beta)
+    b, h, w, c = x.shape
+    code = _cuda.dtype_code(x, "x")
+    _cuda.check(x, "x")
+    _cuda.check(gamma, "gamma", (c,), torch.float32, x.device)
+    _cuda.check(beta, "beta", (c,), torch.float32, x.device)
+    if c % 4 or c > 128:
+        raise ValueError(f"cross-scan kernels take C % 4 == 0 and C <= 128, got C={c}")
+    out = torch.empty((b, h * w, c), dtype=x.dtype, device=x.device)
+    _cuda.launch("lfsr_cross_scan_gather", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 out.data_ptr(), b, h, w, c, EPS, code, _cuda.stream_of(x))
+    cross_scan_gather.launches += 1
+    return out
+
+
+@_cuda.counted
+def cross_scan_scatter(seq, x, w, scale):
+    """K5: un-permute seq [B, H*W, C], mix by w [C, C], return x + scale*y.
+    ``scale`` is a one-element float32 tensor (read on the device)."""
+    if _cuda.use_plain(x):
+        return cross_scan_scatter_plain(seq, x, w, scale)
+    b, h, wd, c = x.shape
+    code = _cuda.dtype_code(x, "x")
+    _cuda.check(x, "x")
+    _cuda.check(seq, "seq", (b, h * wd, c), x.dtype, x.device)
+    _cuda.check(w, "w", (c, c), x.dtype, x.device)
+    _cuda.check(scale, "scale", (1,), torch.float32, x.device)
+    if c % 4 or c > 128:
+        raise ValueError(f"cross-scan kernels take C % 4 == 0 and C <= 128, got C={c}")
+    out = torch.empty_like(x)
+    _cuda.launch("lfsr_cross_scan_scatter", seq.data_ptr(), x.data_ptr(), w.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), b, h, wd, c, code, _cuda.stream_of(x))
+    cross_scan_scatter.launches += 1
+    return out

@@ -10,9 +10,9 @@ model makes (a float32 ``scale`` parameter times a bf16 tensor) are kept,
 so the residual stream between blocks is float32 as on the TPU.
 
 The kernels of the TPU path: K1 (Mamba scan), K4/K5 (cross-scan gather
-and scatter) and K6 (window attention) run as the port's CUDA kernels on
-CUDA tensors. K7 (``pallas_block.ln_msl``) is not ported: the block raises
-on a CUDA tensor at or above K7's pixel gate (ops/block.py).
+and scatter), K6 (window attention) and, on blocks at or above its gate
+(whole-scene square mosaics), K7 (LayerNorm + local branch) run as the
+port's CUDA kernels on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from lfsr_tpu_torch.models.common import (
 )
 from lfsr_tpu_torch.models.registry import register_model
 from lfsr_tpu_torch.models.ssm import Mamba
-from lfsr_tpu_torch.ops.block import require_below_ln_msl_gate
+from lfsr_tpu_torch.ops.block import ln_msl, ln_msl_supported
 from lfsr_tpu_torch.ops.cross_scan import (
     cross_scan_gather, cross_scan_scatter, layer_norm_fast,
 )
@@ -152,10 +152,19 @@ class LFVSSMBlock(nn.Module):
 
     def forward(self, x):
         c, dt = self.feats, self.dtype
-        require_below_ln_msl_gate(x)
-        ln = self.LayerNorm_0
-        xn = layer_norm_fast(x, ln.weight, ln.bias).to(dt)
-        local = self.MultiScaleLocal_0(xn)
+        ln, msl = self.LayerNorm_0, self.MultiScaleLocal_0
+        if ln_msl_supported(x):  # the gate reads the float32 residual stream
+            # K7: x is cast to the compute dtype before the LayerNorm, as on
+            # the TPU; the head 1x1 is folded through the mix as in msl
+            c4 = msl.c
+            wh, wm = mix_kernel(msl.Conv_0, dt), mix_kernel(msl.Conv_2, dt)
+            wk = msl.Conv_1.weight[:, 0].permute(1, 2, 0).to(dt)  # [3, 3, C-c4]
+            xn, local = ln_msl(x.to(dt).contiguous(), ln.weight, ln.bias,
+                               (wh @ wm[:c4]).contiguous(), wm[c4:].contiguous(),
+                               wk.contiguous())
+        else:
+            xn = layer_norm_fast(x, ln.weight, ln.bias).to(dt)
+            local = msl(xn)
         glob = self.CrossScanSSM_0(xn)
         wf = mix_kernel(self.Conv_0, dt)
         y = local.to(dt) @ wf[:c] + glob.to(dt) @ wf[c:]

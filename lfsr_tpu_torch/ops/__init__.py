@@ -7,6 +7,7 @@ with their sources and the TPU kernels they replace.
 
 from __future__ import annotations
 
+from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.scan import selective_scan_proj
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
@@ -28,6 +29,9 @@ KERNELS = {
     "K6 window_mha_fused": (
         window_mha_fused, "lfsr_tpu_torch/csrc/window_attention.cu",
         "lfsr_tpu/ops/pallas_attention.py:134",
+    ),
+    "K7 ln_msl": (
+        ln_msl, "lfsr_tpu_torch/csrc/ln_msl.cu", "lfsr_tpu/ops/pallas_block.py:220",
     ),
 }
 

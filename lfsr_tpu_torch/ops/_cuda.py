@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, the first time a kernel is
-launched, and loaded with ``ctypes``. The library goes to
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, run in parallel) and linked into ONE shared library
+with a plain C interface, the first time a kernel is launched, and loaded
+with ``ctypes``. The library goes to
 ``lfsr_tpu_torch/_build/`` (git-ignored) under a name that hashes the
 sources, so an edited source rebuilds and an unchanged one is reused.
 
@@ -29,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -46,6 +47,9 @@ _SIGNATURES = {
     # x, wqkv, wout, ln_g, ln_b, bias, scale, y, B, H, W, C, ws, heads,
     # qscale, eps, dtype, stream
     "lfsr_window_mha": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, gamma, beta, whm, wrest, wk, xn, local, B, H, W, C, c4, slope, eps,
+    # dtype, stream
+    "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,17 +88,28 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    # one nvcc per source, all started together, then one link
+    cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(cmds, procs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in results):
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        results.append((link, res.stdout, res.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if verbose:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+        print("".join(text for _, text, _ in results))
+    for cmd, text, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     return out
 
@@ -157,6 +172,15 @@ def use_plain(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return False
+
+
+def twin_error(got, want) -> tuple[float, float]:
+    """A kernel's output(s) ``got`` against its twin's ``want`` (a tensor
+    or a tuple of them): max |got - want| and the bound's scale
+    max(1, max |want|)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    return err, max(1.0, *(b.float().abs().max().item() for b in want))
 
 
 def check(t: torch.Tensor, name: str, shape=None, dtype=None, device=None):

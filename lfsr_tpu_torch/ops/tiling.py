@@ -22,10 +22,16 @@ def tile_counts(h0: int, w0: int, patch: int, stride: int) -> tuple[int, int]:
     return (h0 + bdr * 2 - 1) // stride, (w0 + bdr * 2 - 1) // stride
 
 
+def symmetric_index(size: int, before: int, after: int) -> np.ndarray:
+    """Source indices of an axis of ``size`` samples extended by ``before``
+    and ``after`` samples with numpy's ``mode='symmetric'``."""
+    return np.pad(np.arange(size), (before, after), mode="symmetric")
+
+
 def _patch_index(n: int, size: int, patch: int, stride: int) -> torch.Tensor:
     """[n*patch] source rows of the symmetric-extended patch grid."""
     bdr = (patch - stride) // 2
-    ext = np.pad(np.arange(size), (bdr, bdr + stride - 1), mode="symmetric")
+    ext = symmetric_index(size, bdr, bdr + stride - 1)
     idx = (np.arange(n) * stride)[:, None] + np.arange(patch)[None, :]
     return torch.from_numpy(ext[idx.reshape(-1)])
 

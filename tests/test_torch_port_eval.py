@@ -1,4 +1,6 @@
-"""Port vs JAX: tiled ``evaluate_sets`` end to end on a tiny synthetic scene.
+"""Port vs JAX: tiled ``evaluate_sets`` end to end on a tiny synthetic scene,
+and which evaluation path a ``Config`` selects (whole-scene cases against
+JAX are in test_torch_port_whole.py).
 
 Small flagship config (channels 16, d_state 4, 3 blocks), float32, LR patch
 8 / stride 4 (40x40 SAI patches), 16 patches in 8 minibatches of 2. SR views
@@ -62,31 +64,57 @@ def test_tiled_evaluate_sets_matches_jax():
     assert abs(got["Synthetic"]["ssim"] - want["Synthetic"]["ssim"]) < 1e-4
 
 
-def test_whole_scene_mode_is_not_silently_replaced():
-    model = get_model(_cfg())
+def _nearest_model(calls):
+    def fake_model(x):
+        calls.append(tuple(x.shape))
+        return torch.nn.functional.interpolate(
+            x.permute(0, 3, 1, 2), scale_factor=4, mode="nearest").permute(0, 2, 3, 1)
+
+    fake_model.parameters = lambda: iter([torch.zeros(1)])
+    return fake_model
+
+
+def test_default_config_takes_the_whole_scene_path():
+    # Config() defers to the registry: LFMambaX evaluates whole scenes, 4 per
+    # model call, each 16x16 view padded by 8 to a 32x32 view (160x160 mosaic)
+    cfg = Config(model_kwargs=SMALL)
+    calls = []
+    model = _nearest_model(calls)
+    scenes = [TestScene(**{**_scene(), "name": f"toy{i}"}) for i in range(5)]
+    res = teval.evaluate_sets(model, {"Synthetic": scenes}, cfg, log=lambda m: None,
+                              keep_views=True)
+    assert calls == [(4, 160, 160, 1), (4, 160, 160, 1)]
+    lr = torch.from_numpy(_scene()["lr_y"])
+    want = torch.nn.functional.interpolate(lr.reshape(1, 1, 80, 80), scale_factor=4,
+                                           mode="nearest")[0, 0]
+    from lfsr_tpu_torch.ops.layout import views_to_sai
+
+    for sc in scenes:
+        np.testing.assert_array_equal(views_to_sai(res["Synthetic"]["views"][sc.name]).numpy(),
+                                      want.numpy())
+    calls.clear()
+    _, _, views = teval.evaluate_scene(model, scenes[0], cfg)
+    assert calls == [(1, 160, 160, 1)]
+    np.testing.assert_array_equal(views_to_sai(views).numpy(), want.numpy())
+
+
+def test_re_task_and_epsw_stitching_still_raise():
+    model = _nearest_model([])
     scene = TestScene(**_scene())
-    for cfg in (Config(model_kwargs=SMALL), _cfg().replace(whole_scene_for_test=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for cfg in (Config(model_kwargs=SMALL, task="RE"), _cfg(epsw_for_test=True)):
+        with pytest.raises(NotImplementedError):
             teval.evaluate_sets(model, {"Synthetic": [scene]}, cfg, log=lambda m: None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError):
             teval.evaluate_scene(model, scene, cfg)
 
 
 def test_minibatch_padding_keeps_every_patch():
     # 16 patches in minibatches of 3: the grid is zero-padded to 18 and cut back
-    cfg = _cfg(minibatch_for_test=3)
     calls = []
-
-    def fake_model(x):
-        calls.append(x.shape[0])
-        return torch.nn.functional.interpolate(
-            x.permute(0, 3, 1, 2), scale_factor=4, mode="nearest").permute(0, 2, 3, 1)
-
-    fake_model.parameters = lambda: iter([torch.zeros(1)])
     lr = torch.from_numpy(_scene()["lr_y"])
-    views = teval.sr_scene(fake_model, lr, ang=5, scale=4, patch=8, stride=4,
+    views = teval.sr_scene(_nearest_model(calls), lr, ang=5, scale=4, patch=8, stride=4,
                            minibatch=3, h0=16, w0=16)
-    assert calls == [3] * 6
+    assert [c[0] for c in calls] == [3] * 6
     want = torch.nn.functional.interpolate(
         lr.reshape(1, 1, 80, 80), scale_factor=4, mode="nearest")[0, 0]
     from lfsr_tpu_torch.ops.layout import views_to_sai

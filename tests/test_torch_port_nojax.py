@@ -1,9 +1,10 @@
 """``lfsr_tpu_torch`` and ``chip_smoke.py`` run with jax and flax blocked.
 
 A fresh interpreter blocks every ``jax``/``jaxlib``/``flax`` import, imports
-every module of the port, runs a CPU forward of the small flagship and a
-tiled ``evaluate_sets`` on a tiny scene, and checks that no jax module was
-loaded. The machine with the card has no jax at all.
+every module of the port, runs a CPU forward of the small flagship, a
+tiled and a whole-scene ``evaluate_sets`` and ``infer_submission`` on tiny
+scenes, and checks that no jax module was loaded. The machine with the card
+has no jax at all.
 """
 
 import os
@@ -57,6 +58,21 @@ scene = TestScene("toy", "Synthetic", rng.random((40, 40), dtype=np.float32),
                   rng.random((160, 160), dtype=np.float32), np.zeros((160, 160, 2), np.float32))
 res = evaluate_sets(model, {"Synthetic": [scene]}, cfg, log=lambda m: None)
 assert np.isfinite(res["Synthetic"]["psnr"]), res
+
+import tempfile
+from pathlib import Path
+from lfsr_tpu_torch.inference import infer_submission
+
+whole = cfg.replace(whole_scene_for_test=None)  # the flagship's default: whole scenes
+scenes = [TestScene(f"toy{i}", "Synthetic", rng.random((60, 60), dtype=np.float32),
+                    rng.random((240, 240), dtype=np.float32),
+                    np.full((240, 240, 2), 0.5, np.float32)) for i in range(2)]
+res = evaluate_sets(model, {"Synthetic": scenes}, whole, log=lambda m: None)
+assert np.isfinite(res["Synthetic"]["psnr"]), res
+with tempfile.TemporaryDirectory() as tmp:
+    rep = infer_submission(model, {"Synth": scenes}, whole, Path(tmp) / "sub", log=lambda m: None)
+    assert len(list((Path(tmp) / "sub" / "Synth").rglob("*.bmp"))) == 2 * 25
+    assert (Path(tmp) / "sub.zip").exists() and rep.checks > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

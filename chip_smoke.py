@@ -3,31 +3,43 @@
 
     python3 chip_smoke.py                 # the whole check (one card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
-    python3 chip_smoke.py --profile       # + torch.profiler traces of one dispatch each
+    python3 chip_smoke.py --train-only    # build + kernels + the training phase
+    python3 chip_smoke.py --profile       # + torch.profiler traces of one dispatch / step each
 
 Phases (any failure exits non-zero):
 1. Card and build: print ``nvidia-smi`` name and power limit; build the
    Hopper kernels from ``lfsr_tpu_torch/csrc`` with nvcc (timed).
 2. Kernels vs plain: each kernel against its plain PyTorch twin on the
    card, in float32 with TF32 off (tight bound) and in bfloat16 (loose
-   bound), with kernel and twin times, at every shape the main path gives
+   bound), with kernel and twin times, at every shape the main paths give
    it: K1 scan, K4 cross-scan gather, K5 cross-scan scatter and K6 window
    attention at the tiled-eval shapes and at a Real whole-scene dispatch
    ([4, 640, 880, 64]); those four and K7 LayerNorm + local branch at a
-   Synth one ([4, 720, 720, 64]).
-3. Tiled eval: the full-width flagship LFMambaX (64 channels, 12 blocks,
+   Synth one ([4, 720, 720, 64]); K2 (the scan's training forward, whose y
+   must equal K1's bit for bit), K3 (its adjoint) and K4-K7 at the batch-8
+   training shape ([8, 160, 160, 64], scan [8, 25600, 80]).
+3. Training: ``Config(batch_size=8)`` (bf16, augmentation, masked
+   pre-training with 2 masked views in epoch 0, dropout, composite_v8,
+   AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
+   untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
+   step (K2/K3/K4/K5/K7 12, K6 2, K1 0), finite loss/PSNR/SSIM, ms/step,
+   steps/s, peak memory. A batch holding a NaN must leave the parameters
+   and the optimizer's inner state as they were. One float32 step's
+   parameter gradients on the kernels against the plain twins (batch 4,
+   the smallest batch at K7's gate).
+4. Tiled eval: the full-width flagship LFMambaX (64 channels, 12 blocks,
    d_state 16, bf16 activations) from a seeded random init, tiled
    ``evaluate_sets`` of one synthetic 5x5 scene (128^2 LR, 512^2 HR per
    view): launch counts, finite SR, agreement with the plain twins, finite
    PSNR/SSIM beside bicubic, ms/scene.
-4. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
+5. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
    (432x624 HR), one dispatch each: launch counts per dispatch (K7 on the
    square Synth mosaic only), finite SR and metrics, ms/scene and peak
    memory; one scene per geometry against the plain twins.
-5. Submission: ``infer_submission`` of 16 Synth + 16 Real synthetic scenes
+6. Submission: ``infer_submission`` of 16 Synth + 16 Real synthetic scenes
    into a temporary directory; the NTIRE validator must report no error.
-6. Prints the card, the kernels' JSON line, then the final result line.
+7. Prints the card, the kernels' JSON line, then the final result line.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -35,6 +47,7 @@ Needs torch with CUDA and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -62,9 +75,19 @@ TILED_HR = (512, 512)
 # scenes per geometry: whole-scene eval, submission
 EVAL_SCENES, SUBMISSION_SCENES = 4, 16
 
+# per-parameter gradient of one float32 train step, kernels vs plain twins:
+# max|g_kernel - g_plain| <= bound * max(1, max|g_plain|)
+GRAD_BOUND = 1e-4
+
 # launches per flagship forward (12 blocks, window attention after 2 phases)
 PER_FORWARD = {"K1 selective_scan_proj": 12, "K4 cross_scan_gather": 12,
                "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12}
+# launches per train step: K2 in place of K1 forward, K3 in backward (K4-K7
+# have no backward kernel: their gradient is the plain twin's, as on the TPU)
+PER_STEP = {"K1 selective_scan_proj": 0, "K2 selective_scan_proj_states": 12,
+            "K3 selective_scan_proj_bwd": 12, "K4 cross_scan_gather": 12,
+            "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12}
+TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 
 
 def log(msg: str) -> None:
@@ -93,11 +116,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_cases(dtype, g: torch.Generator):
-    """Yields (kernel, where, operands) at the main path's shapes, each made
-    on the card when it is reached: K1/K4/K5/K6 at tiled eval (minibatch 2
-    of 160x160 SAI patches; 64 channels, Di 80, d_state 16, dt rank 4); all
-    five at a Synth whole-scene dispatch; K1/K4/K5/K6 at a Real one (K7 is
-    not taken on the non-square Real mosaic)."""
+    """Yields (kernel, where, operands) at the main paths' shapes, each made
+    on the card when it is reached: K2, K3 and K4-K7 at the batch-8 train
+    step (160x160 SAI patches; 64 channels, Di 80, d_state 16, dt rank 4);
+    K1/K4/K5/K6 at tiled eval (minibatch 2); all five eval kernels at a
+    Synth whole-scene dispatch; K1/K4/K5/K6 at a Real one (K7 is not taken
+    on the non-square Real mosaic)."""
+    from lfsr_tpu_torch.ops import scan
+
     dev = DEVICE
 
     def rn(*shape, s=1.0, dt=torch.float32):
@@ -108,9 +134,14 @@ def kernel_cases(dtype, g: torch.Generator):
 
     def operands(name, B, H, W):
         L = H * W
-        if name == "K1":
+        if name in ("K1", "K2"):
             return (rn(B, L, Di, s=0.5, dt=dtype), rn(B, L, R + 2 * N, s=0.5, dt=dtype),
                     rn(R, Di, s=0.3), rn(Di, s=0.1), A, torch.ones(Di, device=dev))
+        if name == "K3":  # the saved states come from K2 on the same operands
+            u, dbc, wdt, bdt = (rn(B, L, Di, s=0.5, dt=dtype), rn(B, L, R + 2 * N, s=0.5, dt=dtype),
+                                rn(R, Di, s=0.3), rn(Di, s=0.1))
+            states = scan.selective_scan_proj_states(u, dbc, wdt, bdt, A, torch.ones(Di, device=dev))[1]
+            return u, dbc, rn(B, L, Di, dt=dtype), wdt, bdt, A, states
         if name == "K4":
             return rn(B, H, W, C, dt=dtype), 1 + rn(C, s=0.2), rn(C, s=0.1)
         if name == "K5":
@@ -128,19 +159,26 @@ def kernel_cases(dtype, g: torch.Generator):
         # by 8 and rounded up to a multiple of 8 (720x720 Synth, 640x880 Real)
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
-    for where, shape, names in (("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6")),
+    for where, shape, names in (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7")),
+                                ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6")),
                                 ("synth", mosaic(SYNTH_HR), ("K1", "K4", "K5", "K6", "K7")),
                                 ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6"))):
         for name in names:
             yield name, where, operands(name, *shape)
 
 
-def by_rows(plain):
-    """K1's twin one batch row at a time. Each row is an independent
-    recurrence; at a whole-scene L the twin's log-depth scan holds several
-    [rows, L, 80, 16] float32 tensors (~2.7 GB each for one row)."""
-    return lambda u, dbc, *w: torch.cat([plain(u[i : i + 1], dbc[i : i + 1], *w)
-                                         for i in range(u.shape[0])])
+def by_rows(plain, rows=(0, 1)):
+    """A scan twin one batch row at a time (the arguments at ``rows`` are
+    sliced; outputs are joined along the batch). Each row is an independent
+    recurrence; the twin's log-depth scan holds several [rows, L, 80, 16]
+    float32 tensors (~2.7 GB each for one row at a whole-scene L)."""
+    def run(*args):
+        outs = [plain(*(a[i : i + 1] if j in rows else a for j, a in enumerate(args)))
+                for i in range(args[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+    return run
 
 
 def check_kernels(results: dict) -> None:
@@ -149,15 +187,20 @@ def check_kernels(results: dict) -> None:
 
     pairs = {
         "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain),
+        "K2": (scan.selective_scan_proj_states, by_rows(scan.selective_scan_proj_states_plain)),
+        "K3": (scan.selective_scan_proj_bwd,
+               by_rows(scan.selective_scan_proj_bwd_plain, rows=(0, 1, 2, 6))),
         "K4": (cs.cross_scan_gather, cs.cross_scan_gather_plain),
         "K5": (cs.cross_scan_scatter, cs.cross_scan_scatter_plain),
         "K6": (wa.window_mha_fused, wa.window_mha_plain),
         "K7": (block.ln_msl, block.ln_msl_plain),
     }
     # the JSON line reports each kernel on the flagship's bf16 path (K6 runs
-    # on the float32 residual stream) at the Synth whole-scene dispatch, the
-    # default eval's shape where all five run
-    main = {k: (torch.float32 if k == "K6" else torch.bfloat16, "synth") for k in pairs}
+    # on the float32 residual stream): K1 and K4-K7 at the Synth whole-scene
+    # dispatch, the default eval's shape where all five run; K2 and K3 at
+    # the batch-8 train step
+    main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
+                "train" if k in ("K2", "K3") else "synth") for k in pairs}
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, bound in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g):
@@ -168,18 +211,30 @@ def check_kernels(results: dict) -> None:
                 plain = by_rows(plain)
             got = kern(*args)
             torch.cuda.synchronize()
+            if name == "K2":  # the training forward's y is K1's, bit for bit
+                same = torch.equal(got[0], scan.selective_scan_proj(*args))
+                log(f"[kernels] K2 {str(dtype)[6:]:8s} y == K1 y bit for bit: {same}")
+                assert same, f"K2 {dtype}: y differs from K1's"
             want = plain(*args)
             torch.cuda.synchronize()
-            err, scale = _cuda.twin_error(got, want)
-            del got, want
-            ok = bool(np.isfinite(err)) and err <= bound * scale
+            # each output against its own scale (K3's dA sums over L, its du
+            # does not); float32 outputs (K2's states, all of K3's) from
+            # bf16 inputs are computed in float32 on both sides
+            outs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            errs = [_cuda.twin_error(a, b) for a, b in outs]
+            bounds = [(bound if a.dtype == torch.bfloat16 else F32_BOUND) * sc
+                      for (a, _), (_, sc) in zip(outs, errs)]
+            del got, want, outs
+            err = max(e for e, _ in errs)
+            ok = all(np.isfinite(e) and e <= b for (e, _), b in zip(errs, bounds))
             ms = time_ms(lambda: kern(*args), *((5, 1) if big else (20, 3)))
             plain_ms = time_ms(lambda: plain(*args), *((1, 0) if big else (5, 1)))
             log(f"[kernels] {name} {str(dtype)[6:]:8s} {where:5s} shape {tuple(args[0].shape)} "
-                f"max|d|={err:.3e} bound={bound * scale:.3e} {'ok' if ok else 'FAIL'} | "
+                f"max|d|={', '.join(f'{e:.3e}' for e, _ in errs)} "
+                f"bound={', '.join(f'{b:.3e}' for b in bounds)} {'ok' if ok else 'FAIL'} | "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({CARD})")
             if not ok:
-                raise AssertionError(f"{name} {dtype} {where}: max|d| {err} > {bound * scale}")
+                raise AssertionError(f"{name} {dtype} {where}: max|d| {errs} > {bounds}")
             if (dtype, where) == main[name]:
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
             del args
@@ -230,22 +285,21 @@ def bicubic_baseline(scene, ang: int, s: int):
     return float(p), float(ss)
 
 
-def profile_dispatch(model, x, label: str, reps: int = 3) -> None:
-    """One model call on ``x`` under torch.profiler: device time by kernel
-    and the device's idle share (one minus the union of kernel intervals
-    over the host wall time)."""
+def profile_run(fn, label: str, reps: int = 3) -> None:
+    """``fn()`` (one dispatch or one step) under torch.profiler after one
+    untimed call: device time by kernel and the device's idle share (one
+    minus the union of kernel intervals over the host wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model(x)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
+        wall_us = 1e6 * (time.perf_counter() - t0)
     # device-side kernel events only: the host ops' rows repeat their kernels' time
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us, end = 0.0, float("-inf")
@@ -254,7 +308,7 @@ def profile_dispatch(model, x, label: str, reps: int = 3) -> None:
             busy_us += stop - max(start, end)
             end = stop
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    log(f"[profile] one {label} dispatch {tuple(x.shape)}: wall "
+    log(f"[profile] one {label}: wall "
         f"{wall_us / reps / 1e3:.2f} ms, device busy {busy_us / reps / 1e3:.2f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {len(kernels) // reps} kernel launches, "
         f"{len(rows)} kernel names ({CARD})")
@@ -263,12 +317,23 @@ def profile_dispatch(model, x, label: str, reps: int = 3) -> None:
             f"{e.count // reps:5d}x  {e.key[:90]}")
 
 
-def check_counts(counts: dict, forwards: dict, what: str) -> None:
-    """Every kernel's launches == its launches per forward x the forwards
-    that engage it (``forwards``: kernel name -> forward count)."""
-    for name, n in PER_FORWARD.items():
-        want = n * forwards[name]
-        assert counts[name] == want, f"{what}: {name} {counts[name]} launches, expected {want}"
+def profile_dispatch(model, x, label: str, reps: int = 3) -> None:
+    def run():
+        with torch.inference_mode():
+            model(x)
+    profile_run(run, f"{label} dispatch {tuple(x.shape)}", reps)
+
+
+def eval_launches(forwards: int, k7_forwards: int) -> dict:
+    """Launches of ``forwards`` eval forwards, ``k7_forwards`` of them at
+    K7's gate (K2 and K3 do not run in eval)."""
+    return {k: n * (k7_forwards if k == "K7 ln_msl" else forwards) for k, n in PER_FORWARD.items()}
+
+
+def check_counts(counts: dict, want: dict, what: str) -> None:
+    """Every kernel's launches == ``want`` (0 for a kernel it does not list)."""
+    for name, n in counts.items():
+        assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
 
 
@@ -302,8 +367,7 @@ def run_tiled(model) -> None:
     res = evaluate_sets(model, {"Synthetic": [scene]}, cfg, log=log, keep_views=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check_counts(launch_counts(), {**dict.fromkeys(PER_FORWARD, dispatches), "K7 ln_msl": 0},
-                 "tiled")
+    check_counts(launch_counts(), eval_launches(dispatches, 0), "tiled")
     views = res["Synthetic"]["views"]
     check_views(views, [scene], ang, s, "tiled")
     assert np.isfinite(res["Synthetic"]["psnr"]) and np.isfinite(res["Synthetic"]["ssim"]), res
@@ -350,7 +414,7 @@ def run_whole(model, synth: list, real: list, profile: bool) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-        check_counts(counts, {**dict.fromkeys(PER_FORWARD, 1), "K7 ln_msl": k7}, f"whole {subset}")
+        check_counts(counts, eval_launches(1, k7), f"whole {subset}")
         total = {k: total[k] + counts[k] for k in total}
         check_views(res[subset]["views"], scenes, ang, s, f"whole {subset}")
         assert np.isfinite(res[subset]["psnr"]) and np.isfinite(res[subset]["ssim"]), res
@@ -398,8 +462,8 @@ def run_submission(model, synth: list, real: list) -> None:
                                log=lambda m: None)
         seconds = time.perf_counter() - t0
         zip_mb = (Path(tmp) / "sub.zip").stat().st_size / 2**20
-    check_counts(launch_counts(), {**dict.fromkeys(PER_FORWARD, sum(dispatches.values())),
-                                   "K7 ln_msl": dispatches["Synth"]}, "submission")
+    check_counts(launch_counts(), eval_launches(sum(dispatches.values()), dispatches["Synth"]),
+                 "submission")
     log(f"[submission] {len(synth)} Synth + {len(real)} Real scenes -> BMP tree + "
         f"{zip_mb:.1f} MiB zip in {seconds:.1f} s; validator: {rep.checks} checks, "
         f"{len(rep.errors)} errors, {len(rep.warnings)} warnings ({CARD})")
@@ -408,7 +472,134 @@ def run_submission(model, synth: list, real: list) -> None:
     assert rep.ok, rep.errors
 
 
-def run_slice(profile: bool = False) -> dict:
+def train_data(n: int):
+    """``n`` synthetic SAI-160 training pairs: 5x5 views of 128^2 HR (a
+    640^2 HR mosaic) and their 4x4 box-downsampled 160^2 LR mosaics."""
+    from lfsr_tpu_torch.data.datasets import TrainArrays
+
+    rng = np.random.default_rng(SEED + 2)
+    scenes = [make_scene(rng, f"patch{i:02d}", (128, 128)) for i in range(n)]
+    return TrainArrays(lr=np.stack([sc.lr_y for sc in scenes]),
+                       hr=np.stack([sc.hr_y for sc in scenes]))
+
+
+def param_snapshot(trainer) -> dict:
+    st = trainer.opt_state
+    return {**{k: p.detach().clone() for k, p in trainer.params.items()},
+            "mu": st.mu_flat.clone(), "nu": st.nu_flat.clone(), "count": st.count.clone()}
+
+
+def check_grads(sd, data) -> None:
+    """One float32 train step's parameter gradients on the kernels vs on the
+    plain twins (``_cuda.force_plain``), same batch and dropout mask. Batch
+    4: the smallest batch of 160^2 patches at K7's gate, so all of K2-K7
+    are on the path."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.ops import _cuda, launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.train import masking
+    from lfsr_tpu_torch.train.trainer import Trainer, generators
+
+    cfg = Config(batch_size=4, compute_dtype="float32")
+    ang = cfg.angRes
+    trainer = Trainer(cfg, TRAIN_STEPS, sd, device=DEVICE)
+    lr = torch.as_tensor(data.lr[:4], device=DEVICE)[..., None]
+    hr = torch.as_tensor(data.hr[:4], device=DEVICE)[..., None]
+    view_keep = torch.ones(ang, ang, device=DEVICE)
+    view_keep[0, 1] = view_keep[3, 3] = 0
+    x = masking.apply_view_mask(lr, view_keep, ang)
+    sracm_keep = masking.draw_sracm(torch.Generator(DEVICE).manual_seed(SEED),
+                                    lr.shape[1] // ang, lr.shape[2] // ang, cfg.mask_start_ratio)
+    x = masking.apply_sracm(x, sracm_keep, ang)
+    grads = []
+    for plain in (False, True):
+        dropout = generators(cfg, 0, DEVICE)["dropout"]  # the same masks in both runs
+        reset_launch_counts()
+        with _cuda.force_plain() if plain else contextlib.nullcontext():
+            sr = trainer.model(x, generator=dropout)
+            loss = trainer.loss_fn(sr, hr)
+            grads.append(dict(zip(trainer.params, torch.autograd.grad(
+                loss, list(trainer.params.values())))))
+        counts = launch_counts()
+        if not plain:
+            check_counts(counts, PER_STEP, "grad check, kernels")
+        else:
+            assert not any(counts.values()), counts
+        del sr, loss
+    worst, worst_rel = ("", 0.0), 0.0
+    for k, gk in grads[0].items():
+        gp = grads[1][k]
+        err = (gk - gp).abs().max().item()
+        top = gp.abs().max().item()
+        assert np.isfinite(err) and err <= GRAD_BOUND * max(1.0, top), (k, err, top)
+        worst = max(worst, (k, err / max(1.0, top)), key=lambda t: t[1])
+        worst_rel = max(worst_rel, err / max(top, 1e-30))
+    log(f"[train] float32 gradients, kernels vs plain twins, {len(grads[0])} parameters: "
+        f"max |d g| / max(1, max|g|) = {worst[1]:.3e} ({worst[0]}; bound {GRAD_BOUND}), "
+        f"max |d g| / max|g| = {worst_rel:.3e}")
+    del trainer, grads
+    torch.cuda.empty_cache()
+
+
+def run_train(sd, profile: bool) -> dict:
+    """The batch-8 train step: warm-up, a timed ``run_epoch``, the NaN-skip
+    and the gradient checks. Returns the epoch's launches."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.train.masking import num_masked_views
+    from lfsr_tpu_torch.train.trainer import Draws, Trainer, generators
+
+    cfg = Config(batch_size=8)
+    ratio = cfg.mask_start_ratio  # epoch 0
+    mask_k = num_masked_views(cfg.angRes, ratio)
+    data = train_data(TRAIN_PATCHES)
+    trainer = Trainer(cfg, TRAIN_STEPS, sd, device=DEVICE)
+    lr = torch.as_tensor(data.lr[:8], device=DEVICE)
+    hr = torch.as_tensor(data.hr[:8], device=DEVICE)
+    gens = generators(cfg, 0, DEVICE)
+    for _ in range(TRAIN_WARMUP):  # untimed: first-call set-up, allocator growth
+        trainer.train_step(lr, hr, trainer.draw(gens, lr.shape, mask_k, ratio), gens["dropout"])
+    torch.cuda.synchronize()
+    if profile:
+        profile_run(lambda: trainer.train_step(lr, hr, trainer.draw(gens, lr.shape, mask_k, ratio),
+                                               gens["dropout"]),
+                    f"train step {tuple(lr.shape)}", reps=2)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.run_epoch(data, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts(counts, {k: n * TRAIN_STEPS for k, n in PER_STEP.items()}, "train")
+    assert all(np.isfinite(res[k]) for k in ("loss", "psnr", "ssim")), res
+    assert res["mask_ratio"] == ratio, res
+    log(f"[train] LFMambaX batch {cfg.batch_size} of {tuple(lr.shape[1:])} LR / "
+        f"{tuple(hr.shape[1:])} HR, {cfg.compute_dtype}, augment + {mask_k} masked views + SRACM + "
+        f"dropout, composite_v8, AdamW: {TRAIN_STEPS} steps in {seconds:.3f} s = "
+        f"{1e3 * seconds / TRAIN_STEPS:.1f} ms/step, {TRAIN_STEPS / seconds:.4f} steps/s, peak "
+        f"mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {res['loss']:.5f}, "
+        f"PSNR/SSIM {res['psnr']:.4f}/{res['ssim']:.4f} (random init) ({CARD})")
+
+    # a batch holding a NaN: no update, the optimizer's inner state unchanged
+    before = param_snapshot(trainer)
+    bad = lr.clone()
+    bad[0, 7, 11] = float("nan")
+    m = trainer.train_step(bad, hr, Draws(), gens["dropout"])
+    after = param_snapshot(trainer)
+    same = all(torch.equal(before[k], after[k]) for k in before)
+    st = trainer.opt_state
+    log(f"[train] NaN batch: loss {m['loss'].item()}, parameters and inner state unchanged: "
+        f"{same}; notfinite_count {int(st.notfinite_count)}, last_finite {bool(st.last_finite)}")
+    assert same and not np.isfinite(m["loss"].item())
+    assert int(st.notfinite_count) == 1 and not bool(st.last_finite)
+    del trainer, before, after
+    torch.cuda.empty_cache()
+    check_grads(sd, data)
+    return counts
+
+
+def run_slice(profile: bool = False, eval_paths: bool = True) -> dict:
     from lfsr_tpu_torch.bridge import init_params, param_count
     from lfsr_tpu_torch.config import Config
     from lfsr_tpu_torch.models.registry import get_model, whole_scene_default
@@ -421,6 +612,9 @@ def run_slice(profile: bool = False) -> dict:
     model = get_model(cfg, device=DEVICE)
     model.load_state_dict(sd)
     log(f"[slice] LFMambaX {n_params} params, {cfg.compute_dtype}")
+    launches = run_train(sd, profile)
+    if not eval_paths:
+        return launches
     if profile:
         from lfsr_tpu_torch.ops.tiling import lf_divide
 
@@ -433,9 +627,9 @@ def run_slice(profile: bool = False) -> dict:
     rng = np.random.default_rng(SEED + 1)
     synth = [make_scene(rng, f"synth{i:02d}", SYNTH_HR) for i in range(SUBMISSION_SCENES)]
     real = [make_scene(rng, f"real{i:02d}", REAL_HR) for i in range(SUBMISSION_SCENES)]
-    launches = run_whole(model, synth[:EVAL_SCENES], real[:EVAL_SCENES], profile)
+    whole = run_whole(model, synth[:EVAL_SCENES], real[:EVAL_SCENES], profile)
     run_submission(model, synth, real)
-    return launches
+    return {k: launches[k] + whole[k] for k in launches}
 
 
 def main() -> int:
@@ -446,7 +640,10 @@ def main() -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory, spills)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one tiled and one whole-scene dispatch with torch.profiler")
+                    help="also trace one train step and one tiled and one whole-scene dispatch "
+                         "with torch.profiler")
+    ap.add_argument("--train-only", action="store_true",
+                    help="after the kernel phase run the training phase only (no eval paths)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -470,7 +667,9 @@ def main() -> int:
     if args.kernels_only:
         log(CARD)
         return 0
-    launches = run_slice(profile=args.profile)
+    # launches: the training phase's epoch + the two whole-scene dispatches,
+    # each counted between its own reset and read
+    launches = run_slice(profile=args.profile, eval_paths=not args.train_only)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name.split()[0]]}

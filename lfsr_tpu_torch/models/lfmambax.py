@@ -9,10 +9,12 @@ exactly where the JAX module casts, and the float32 promotions the JAX
 model makes (a float32 ``scale`` parameter times a bf16 tensor) are kept,
 so the residual stream between blocks is float32 as on the TPU.
 
-The kernels of the TPU path: K1 (Mamba scan), K4/K5 (cross-scan gather
-and scatter), K6 (window attention) and, on blocks at or above its gate
-(whole-scene square mosaics), K7 (LayerNorm + local branch) run as the
-port's CUDA kernels on CUDA tensors.
+The kernels of the TPU path: K1 (Mamba scan; K2/K3 forward and adjoint
+when a gradient is wanted), K4/K5 (cross-scan gather and scatter), K6
+(window attention) and, on blocks at or above its gate (whole-scene square
+mosaics, batch-8 training patches), K7 (LayerNorm + local branch) run as
+the port's CUDA kernels on CUDA tensors. ``module.train()`` turns on the
+blocks' dropout (JAX ``train=True``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from lfsr_tpu_torch.models.cnn_baselines import bicubic_up
 from lfsr_tpu_torch.models.common import (
     Conv, LayerNorm, dw_apply, lrelu, mix_kernel, pixel_shuffle, pw_apply,
 )
+from lfsr_tpu_torch.models.losses import composite_v8_builder
 from lfsr_tpu_torch.models.registry import register_model
 from lfsr_tpu_torch.models.ssm import Mamba
 from lfsr_tpu_torch.ops.block import ln_msl, ln_msl_supported
@@ -135,9 +138,20 @@ class CrossScanSSM(nn.Module):
         return cross_scan_scatter(out, x, w1, self.scale)
 
 
+def dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each value with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate) in y's dtype; the keep mask is
+    drawn from ``generator`` (on y's device)."""
+    keep = 1.0 - rate
+    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+    return torch.where(mask, y / torch.tensor(keep, dtype=y.dtype, device=y.device), 0)
+
+
 class LFVSSMBlock(nn.Module):
     """Pre-norm dual-branch block: local || cross-scan SSM -> 1x1 fuse ->
-    ECA -> scaled residual. Dropout is off (eval)."""
+    ECA -> dropout 0.1 (train mode only) -> scaled residual."""
+
+    DROPOUT = 0.1
 
     def __init__(self, feats: int, d_state: int, d_conv: int, expand: float, dt,
                  device=None):
@@ -150,7 +164,7 @@ class LFVSSMBlock(nn.Module):
         self.ECA_0 = ECA(feats, dt, device=device)
         self.res_scale = nn.Parameter(torch.empty(1, device=device))
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         c, dt = self.feats, self.dtype
         ln, msl = self.LayerNorm_0, self.MultiScaleLocal_0
         if ln_msl_supported(x):  # the gate reads the float32 residual stream
@@ -169,6 +183,10 @@ class LFVSSMBlock(nn.Module):
         wf = mix_kernel(self.Conv_0, dt)
         y = local.to(dt) @ wf[:c] + glob.to(dt) @ wf[c:]
         y = self.ECA_0(y)
+        if self.training:
+            if generator is None:
+                raise ValueError("LFVSSMBlock in train mode needs a dropout generator")
+            y = dropout(y, self.DROPOUT, generator)
         return x + self.res_scale * y
 
 
@@ -384,7 +402,7 @@ class HLFR(nn.Module):
 DEFAULT_PHASES = ((4, 0.25), (5, 0.35), (3, None))
 
 
-@register_model("LFMambaX", whole_scene_ok=True)
+@register_model("LFMambaX", loss=composite_v8_builder, whole_scene_ok=True)
 class LFMambaX(nn.Module):
     """The flagship. Config overrides (``cfg.model_kwargs``): channels,
     d_state, d_conv, expand, use_macpi, phases."""
@@ -425,8 +443,10 @@ class LFMambaX(nn.Module):
         self.ProgressiveFusion_0 = ProgressiveFusion(c, nb, dt, device=device)
         self.HLFR_0 = HLFR(c, cfg.scale_factor, dt, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, 1] float32 SAI patches -> [B, H*s, W*s, 1] float32."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x [B, H, W, 1] float32 SAI patches -> [B, H*s, W*s, 1] float32.
+        In train mode the blocks' dropout draws from ``generator`` (flax's
+        ``rngs={"dropout": key}``), which is then required."""
         a, s, dt = self.cfg.angRes, self.cfg.scale_factor, self.dtype
         up = bicubic_up(x, s)
         h, w = x.shape[1], x.shape[2]
@@ -440,7 +460,7 @@ class LFMambaX(nn.Module):
         bi = 0
         for phase, (n, attn_scale) in enumerate(self.phases):
             for _ in range(n):
-                feat = getattr(self, f"block_{bi}")(feat)
+                feat = getattr(self, f"block_{bi}")(feat, generator)
                 blocks.append(feat)
                 bi += 1
             if attn_scale is not None:

@@ -1,6 +1,7 @@
 """Model registry of the port (mirrors lfsr_tpu/models/registry.py).
 
-Only the flagship ``LFMambaX`` is ported so far. ``get_model`` builds the
+Only the flagship ``LFMambaX`` is ported so far, with its loss
+(``get_loss``: the registered builder, ``composite_v8``). ``get_model`` builds the
 module without initialising it (parameters are created on the meta device
 and then allocated on ``device``); fill it with ``bridge.init_params`` or
 ``bridge.state_dict_from_flax`` through ``load_state_dict``.
@@ -20,6 +21,8 @@ from lfsr_tpu_torch.config import Config
 class ModelSpec:
     name: str
     cls: Callable
+    # loss builder: cfg -> loss_fn(sr, hr) -> scalar
+    build_loss: Callable
     # whole-scene (un-tiled) eval is this model's default in the JAX package
     whole_scene_ok: bool = False
 
@@ -27,9 +30,10 @@ class ModelSpec:
 _REGISTRY: Dict[str, ModelSpec] = {}
 
 
-def register_model(name: str, whole_scene_ok: bool = False):
+def register_model(name: str, loss: Callable, whole_scene_ok: bool = False):
     def deco(cls):
-        _REGISTRY[name] = ModelSpec(name=name, cls=cls, whole_scene_ok=whole_scene_ok)
+        _REGISTRY[name] = ModelSpec(name=name, cls=cls, build_loss=loss,
+                                    whole_scene_ok=whole_scene_ok)
         return cls
 
     return deco
@@ -56,3 +60,8 @@ def get_model(cfg: Config, device=None) -> torch.nn.Module:
     with torch.device("meta"):
         model = spec(cfg.model_name).cls(cfg)
     return model.to_empty(device=device or "cpu").eval()
+
+
+def get_loss(cfg: Config) -> Callable:
+    """The model's training loss ``loss_fn(sr, hr) -> scalar``."""
+    return spec(cfg.model_name).build_loss(cfg)

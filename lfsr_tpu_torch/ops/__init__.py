@@ -1,7 +1,9 @@
 """Ops of the port: layouts, resize, tiling, metrics, and the kernels.
 
 Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
-plain twin on CPU tensors) with a launch counter. ``KERNELS`` lists them
+plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
+scan's autograd Function (``scan.ScanProj``) and K4-K7 inside
+``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace.
 """
 
@@ -9,7 +11,9 @@ from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
-from lfsr_tpu_torch.ops.scan import selective_scan_proj
+from lfsr_tpu_torch.ops.scan import (
+    selective_scan_proj, selective_scan_proj_bwd, selective_scan_proj_states,
+)
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
@@ -17,6 +21,14 @@ KERNELS = {
     "K1 selective_scan_proj": (
         selective_scan_proj, "lfsr_tpu_torch/csrc/scan.cu",
         "lfsr_tpu/ops/pallas_scan.py:251",
+    ),
+    "K2 selective_scan_proj_states": (
+        selective_scan_proj_states, "lfsr_tpu_torch/csrc/scan.cu",
+        "lfsr_tpu/ops/pallas_scan.py:1009",
+    ),
+    "K3 selective_scan_proj_bwd": (
+        selective_scan_proj_bwd, "lfsr_tpu_torch/csrc/scan.cu",
+        "lfsr_tpu/ops/pallas_scan.py:1135",
     ),
     "K4 cross_scan_gather": (
         cross_scan_gather, "lfsr_tpu_torch/csrc/cross_scan.cu",

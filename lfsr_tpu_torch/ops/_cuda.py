@@ -40,6 +40,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # u, dbc, wdt, bdt, A, D, y, B, L, Di, R, N, dtype, stream
     "lfsr_scan_proj": [_P] * 7 + [_I] * 6 + [_P],
+    # u, dbc, wdt, bdt, A, D, y, states, B, L, Di, R, N, spacing, dtype, stream
+    "lfsr_scan_proj_states": [_P] * 8 + [_I] * 7 + [_P],
+    # u, dbc, dy, wdt, bdt, A, states, du, ddt, dB, dC, dA, part_b, part_c,
+    # B, L, Di, R, N, spacing, dtype, stream
+    "lfsr_scan_proj_bwd": [_P] * 14 + [_I] * 7 + [_P],
     # x, gamma, beta, out, B, H, W, C, eps, dtype, stream
     "lfsr_cross_scan_gather": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     # seq, x, w, scale, out, B, H, W, C, dtype, stream
@@ -125,6 +130,9 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.lfsr_error_string.argtypes = [ctypes.c_int]
         handle.lfsr_error_string.restype = ctypes.c_char_p
+        # Di, N -> blocks along Di of the adjoint kernel (its scratch's axis 1)
+        handle.lfsr_scan_bwd_parts.argtypes = [_I, _I]
+        handle.lfsr_scan_bwd_parts.restype = ctypes.c_int
         _lib = handle
     return _lib
 
@@ -205,3 +213,48 @@ def counted(fn):
     """Give a kernel wrapper its launch counter (``fn.launches``)."""
     fn.launches = 0
     return fn
+
+
+# --------------------------------------------------------------------------
+# gradients
+# --------------------------------------------------------------------------
+
+def wants_grad(*tensors) -> bool:
+    """True when autograd records and some operand requires a gradient:
+    the wrapper then goes through its autograd Function."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class PlainVJP(torch.autograd.Function):
+    """``fwd(*args)`` (a kernel, or its twin on the CPU) with the gradient
+    of ``plain(*args)``: backward recomputes the plain twin from the saved
+    inputs under ``enable_grad`` and returns ``torch.autograd.grad`` of it.
+    This is what the JAX custom_vjps of K4-K7 do (they differentiate the XLA
+    reference; the TPU has no backward kernel for them).
+
+        PlainVJP.apply(fwd, plain, *args)
+    """
+
+    @staticmethod
+    def forward(ctx, fwd, plain, *args):
+        ctx.plain = plain
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.consts = [None if t else a for a, t in zip(args, ctx.is_tensor)]
+        ctx.save_for_backward(*(a for a, t in zip(args, ctx.is_tensor) if t))
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = iter(ctx.saved_tensors)
+        need = ctx.needs_input_grad[2:]
+        args = [next(saved).detach().requires_grad_(nd) if t else c
+                for t, c, nd in zip(ctx.is_tensor, ctx.consts, need)]
+        wrt = [a for a, nd in zip(args, need) if nd]
+        with torch.enable_grad():
+            outs = ctx.plain(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs], allow_unused=True))
+        return (None, None, *(next(got) if nd else None for nd in need))

@@ -9,6 +9,9 @@ LayerNorm + MultiScaleLocal modules, as the TPU does.
 
 On a CUDA tensor :func:`ln_msl` launches csrc/ln_msl.cu; on a CPU tensor
 it runs the plain twin :func:`ln_msl_plain` (the port of ``ln_msl_ref``).
+When a gradient is wanted it goes through ``_cuda.PlainVJP`` (kernel
+forward, the twin's gradient), as the JAX custom_vjp
+(pallas_block.py:236-247) differentiates the reference.
 """
 
 from __future__ import annotations
@@ -56,7 +59,14 @@ def ln_msl_plain(x, gamma, beta, whm, wrest, wk, slope: float = 0.1):
 @_cuda.counted
 def ln_msl(x, gamma, beta, whm, wrest, wk, slope: float = 0.1):
     """K7: x [B, H, W, C]; gamma/beta [C] float32; whm [c4, C], wrest
-    [C-c4, C] and wk [3, 3, C-c4] in x's dtype. Returns (xn, local)."""
+    [C-c4, C] and wk [3, 3, C-c4] in x's dtype. Returns (xn, local);
+    differentiable in every tensor."""
+    if _cuda.wants_grad(x, gamma, beta, whm, wrest, wk):
+        return _cuda.PlainVJP.apply(_ln_msl, ln_msl_plain, x, gamma, beta, whm, wrest, wk, slope)
+    return _ln_msl(x, gamma, beta, whm, wrest, wk, slope)
+
+
+def _ln_msl(x, gamma, beta, whm, wrest, wk, slope):
     if _cuda.use_plain(x):
         return ln_msl_plain(x, gamma, beta, whm, wrest, wk, slope)
     b, h, w, c = x.shape

@@ -12,6 +12,9 @@ column-major.
 
 On CUDA tensors the wrappers launch the kernels in csrc/cross_scan.cu; on
 CPU tensors they run the plain twins (ports of the ``_ref`` functions).
+When a gradient is wanted they go through ``_cuda.PlainVJP``: the kernel
+forward, the plain twin's gradient (the JAX custom_vjps at
+pallas_layout.py:302-311 and :430-439 differentiate the XLA reference).
 """
 
 from __future__ import annotations
@@ -69,7 +72,14 @@ def cross_scan_scatter_plain(seq, x, w, scale):
 
 @_cuda.counted
 def cross_scan_gather(x, gamma, beta):
-    """K4: x [B, H, W, C] -> LayerNorm(4-way permuted x) [B, H*W, C]."""
+    """K4: x [B, H, W, C] -> LayerNorm(4-way permuted x) [B, H*W, C];
+    differentiable in x, gamma and beta."""
+    if _cuda.wants_grad(x, gamma, beta):
+        return _cuda.PlainVJP.apply(_gather, cross_scan_gather_plain, x, gamma, beta)
+    return _gather(x, gamma, beta)
+
+
+def _gather(x, gamma, beta):
     if _cuda.use_plain(x):
         return cross_scan_gather_plain(x, gamma, beta)
     b, h, w, c = x.shape
@@ -89,7 +99,14 @@ def cross_scan_gather(x, gamma, beta):
 @_cuda.counted
 def cross_scan_scatter(seq, x, w, scale):
     """K5: un-permute seq [B, H*W, C], mix by w [C, C], return x + scale*y.
-    ``scale`` is a one-element float32 tensor (read on the device)."""
+    ``scale`` is a one-element float32 tensor (read on the device).
+    Differentiable in seq, x, w and scale."""
+    if _cuda.wants_grad(seq, x, w, scale):
+        return _cuda.PlainVJP.apply(_scatter, cross_scan_scatter_plain, seq, x, w, scale)
+    return _scatter(seq, x, w, scale)
+
+
+def _scatter(seq, x, w, scale):
     if _cuda.use_plain(x):
         return cross_scan_scatter_plain(seq, x, w, scale)
     b, h, wd, c = x.shape

@@ -1,17 +1,24 @@
-"""K1 — the Mamba selective scan with the dt projection folded in.
+"""K1 / K2 / K3 — the Mamba selective scan with the dt projection folded in.
 
-Port of lfsr_tpu/ops/pallas_scan.py::selective_scan_proj (Pallas kernel
-``_scan_proj_kernel``). From the raw x_proj output
+Port of lfsr_tpu/ops/pallas_scan.py::selective_scan_proj and its custom_vjp
+(Pallas kernels ``_scan_proj_kernel`` K1, ``_scan_proj_states_kernel`` K2,
+``_scan_proj_bwd_kernel`` K3). From the raw x_proj output
 ``dbc = [dt_low_rank | B | C]`` it computes
 
     delta = softplus(dbc[..., :R] @ Wdt + bdt)
     y = selective_scan(u, delta, A, dbc[..., R:R+N], dbc[..., R+N:], D_skip)
 
-On a CUDA tensor :func:`selective_scan_proj` launches the hand-written
-kernel (csrc/scan.cu); on a CPU tensor it runs the plain twin
-:func:`selective_scan_proj_plain` (the port of ``scan_proj_ref``). The
-kernel takes any L: the TPU's pad-to-a-multiple-of-128 (ssm.py:109-113) is
-a Pallas tiling constraint with no counterpart here.
+:func:`selective_scan_proj` is the model's entry. With no gradient wanted
+(``torch.no_grad``/``inference_mode``, or no input requiring one) it is K1
+alone. Otherwise it is the autograd Function :class:`ScanProj`: forward K2,
+which also saves the state at every ``STATE_SPACING``-th step, and backward
+K3, the reverse adjoint scan seeded from those states, followed by the
+dt-projection chain in PyTorch (``_sp_bwd``, pallas_scan.py:340-377).
+
+Each kernel wrapper launches its kernel (csrc/scan.cu) on a CUDA tensor and
+runs its plain twin on a CPU tensor. The kernels take any L: the TPU's
+pad-to-a-multiple-of-128 (ssm.py:109-113) is a Pallas tiling constraint
+with no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,7 +26,10 @@ from __future__ import annotations
 import torch
 
 from lfsr_tpu_torch.ops import _cuda
-from lfsr_tpu_torch.ops.selective_scan import selective_scan
+from lfsr_tpu_torch.ops.selective_scan import readout, scan_states, selective_scan
+
+# steps between saved states (K2) == the adjoint kernel's chunk (K3)
+STATE_SPACING = 64
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -27,21 +37,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip):
-    """Plain twin of K1. u [B, L, Di]; dbc [B, L, R+2N]; Wdt [R, Di];
-    bdt [Di]; A [Di, N] (negative); D_skip [Di]. Returns u.dtype."""
-    f32 = torch.float32
-    R, N = Wdt.shape[0], A.shape[1]
+def _split_dbc(dbc, Wdt, bdt, N):
+    """(delta, B, C) in float32 from the raw x_proj output."""
+    f32, R = torch.float32, Wdt.shape[0]
     d32 = dbc.to(f32)
     delta = softplus(d32[..., :R] @ Wdt.to(f32) + bdt.to(f32))
-    return selective_scan(u, delta, A, d32[..., R : R + N], d32[..., R + N :], D_skip)
+    return delta, d32[..., R : R + N], d32[..., R + N :]
 
 
-@_cuda.counted
-def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
-    """K1: kernel on CUDA tensors, plain twin on CPU tensors."""
-    if _cuda.use_plain(u):
-        return selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip)
+def _check_scan(u, dbc, Wdt, bdt, A, D_skip=None):
+    """Validate the operands every scan kernel takes; returns the dtype code."""
     B, L, Di = u.shape
     R, N = Wdt.shape[0], A.shape[1]
     dev, f32 = u.device, torch.float32
@@ -51,10 +56,32 @@ def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     _cuda.check(Wdt, "Wdt", (R, Di), f32, dev)
     _cuda.check(bdt, "bdt", (Di,), f32, dev)
     _cuda.check(A, "A", (Di, N), f32, dev)
-    _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
+    if D_skip is not None:
+        _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
     if N not in (4, 8, 16, 32) or not 1 <= R <= 8:
-        raise ValueError(f"scan kernel takes d_state in (4, 8, 16, 32) and dt_rank <= 8, "
+        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32) and dt_rank <= 8, "
                          f"got N={N}, R={R}")
+    return code
+
+
+# --------------------------------------------------------------------------
+# K1: the forward
+# --------------------------------------------------------------------------
+
+def selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip):
+    """Plain twin of K1. u [B, L, Di]; dbc [B, L, R+2N]; Wdt [R, Di];
+    bdt [Di]; A [Di, N] (negative); D_skip [Di]. Returns u.dtype."""
+    delta, Bc, Cc = _split_dbc(dbc, Wdt, bdt, A.shape[1])
+    return selective_scan(u, delta, A, Bc, Cc, D_skip)
+
+
+def _scan_proj(u, dbc, Wdt, bdt, A, D_skip):
+    """K1: kernel on CUDA tensors, plain twin on CPU tensors."""
+    if _cuda.use_plain(u):
+        return selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip)
+    code = _check_scan(u, dbc, Wdt, bdt, A, D_skip)
+    B, L, Di = u.shape
+    R, N = Wdt.shape[0], A.shape[1]
     y = torch.empty_like(u)
     _cuda.launch(
         "lfsr_scan_proj", u.data_ptr(), dbc.data_ptr(), Wdt.data_ptr(), bdt.data_ptr(),
@@ -63,3 +90,136 @@ def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     )
     selective_scan_proj.launches += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# K2: the training forward (y and the saved states)
+# --------------------------------------------------------------------------
+
+def selective_scan_proj_states_plain(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_SPACING):
+    """Plain twin of K2: (y, states), y as K1's twin gives it and
+    states [B, ceil(L/spacing), N, Di] float32 with states[:, k] the state
+    before step k*spacing (zero for k = 0) — JAX's h_bounds layout."""
+    delta, Bc, Cc = _split_dbc(dbc, Wdt, bdt, A.shape[1])
+    h = scan_states(u, delta, A, Bc)  # [B, L, Di, N]
+    y = readout(h, u, Cc, D_skip)
+    B, L, Di, N = h.shape
+    nb = -(-L // spacing)
+    starts = h[:, spacing - 1 :: spacing][:, : nb - 1]
+    states = torch.cat([h.new_zeros(B, 1, Di, N), starts], dim=1)
+    return y, states.transpose(2, 3).contiguous()
+
+
+@_cuda.counted
+def selective_scan_proj_states(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_SPACING):
+    """K2: kernel on CUDA tensors, plain twin on CPU tensors. Returns
+    (y, states) as :func:`selective_scan_proj_states_plain`; y is K1's."""
+    if _cuda.use_plain(u):
+        return selective_scan_proj_states_plain(u, dbc, Wdt, bdt, A, D_skip, spacing)
+    code = _check_scan(u, dbc, Wdt, bdt, A, D_skip)
+    B, L, Di = u.shape
+    R, N = Wdt.shape[0], A.shape[1]
+    y = torch.empty_like(u)
+    states = torch.empty((B, -(-L // spacing), N, Di), dtype=torch.float32, device=u.device)
+    _cuda.launch(
+        "lfsr_scan_proj_states", u.data_ptr(), dbc.data_ptr(), Wdt.data_ptr(),
+        bdt.data_ptr(), A.data_ptr(), D_skip.data_ptr(), y.data_ptr(), states.data_ptr(),
+        B, L, Di, R, N, spacing, code, _cuda.stream_of(u),
+    )
+    selective_scan_proj_states.launches += 1
+    return y, states
+
+
+# --------------------------------------------------------------------------
+# K3: the adjoint
+# --------------------------------------------------------------------------
+
+def selective_scan_proj_bwd_plain(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACING):
+    """Plain twin of K3: autograd through :func:`selective_scan` with delta
+    precomputed, one batch row at a time (each row's log-depth scan holds
+    several [L, Di, N] float32 tensors). It recomputes the states, so
+    ``states`` and ``spacing`` are not read. Returns (du_scan, ddt, dB, dC,
+    dA_part) float32: [B, L, Di] x2, [B, L, N] x2, [B, N, Di]."""
+    f32, N = torch.float32, A.shape[1]
+    rows = []
+    for i in range(u.shape[0]):
+        delta, Bc, Cc = _split_dbc(dbc[i : i + 1], Wdt.detach(), bdt.detach(), N)
+        leaves = [t.detach().to(f32).requires_grad_()
+                  for t in (u[i : i + 1], delta, Bc, Cc, A)]
+        with torch.enable_grad():
+            y = selective_scan(*leaves[:2], leaves[4], *leaves[2:4])
+            du, ddt, dB, dC, dA = torch.autograd.grad(y, leaves, dy[i : i + 1].to(f32))
+        rows.append((du, ddt, dB, dC, dA.t()[None]))
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+@_cuda.counted
+def selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACING):
+    """K3: kernel on CUDA tensors, plain twin on CPU tensors. u, dbc, dy in
+    the compute dtype; states from K2 at the same ``spacing``."""
+    if _cuda.use_plain(u):
+        return selective_scan_proj_bwd_plain(u, dbc, dy, Wdt, bdt, A, states, spacing)
+    code = _check_scan(u, dbc, Wdt, bdt, A)
+    B, L, Di = u.shape
+    R, N = Wdt.shape[0], A.shape[1]
+    if spacing != STATE_SPACING:
+        raise ValueError(f"the adjoint kernel takes states every {STATE_SPACING} steps, "
+                         f"got {spacing}")
+    _cuda.check(dy, "dy", (B, L, Di), u.dtype, u.device)
+    _cuda.check(states, "states", (B, -(-L // spacing), N, Di), torch.float32, u.device)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddt = torch.empty((B, L, Di), **f32), torch.empty((B, L, Di), **f32)
+    dB, dC = torch.empty((B, L, N), **f32), torch.empty((B, L, N), **f32)
+    dA = torch.empty((B, N, Di), **f32)
+    parts = _cuda.lib().lfsr_scan_bwd_parts(Di, N)
+    part_b, part_c = torch.empty((2, B, parts, L, N), **f32)
+    _cuda.launch(
+        "lfsr_scan_proj_bwd", u.data_ptr(), dbc.data_ptr(), dy.data_ptr(), Wdt.data_ptr(),
+        bdt.data_ptr(), A.data_ptr(), states.data_ptr(), du.data_ptr(), ddt.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
+        B, L, Di, R, N, spacing, code, _cuda.stream_of(u),
+    )
+    selective_scan_proj_bwd.launches += 1
+    return du, ddt, dB, dC, dA
+
+
+# --------------------------------------------------------------------------
+# the differentiable scan
+# --------------------------------------------------------------------------
+
+class ScanProj(torch.autograd.Function):
+    """selective_scan_proj with the custom_vjp of pallas_scan.py:286-380:
+    forward K2 (saving the states), backward K3 + the dt-projection chain."""
+
+    @staticmethod
+    def forward(ctx, u, dbc, Wdt, bdt, A, D_skip):
+        y, states = selective_scan_proj_states(u, dbc, Wdt, bdt, A, D_skip)
+        ctx.save_for_backward(u, dbc, Wdt, bdt, A, D_skip, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        u, dbc, Wdt, bdt, A, D_skip, states = ctx.saved_tensors
+        f32, R = torch.float32, Wdt.shape[0]
+        g = g.to(u.dtype).contiguous()
+        du_s, ddt, dB, dC, dA_part = selective_scan_proj_bwd(u, dbc, g, Wdt, bdt, A, states)
+        # the dt low-rank projection chain, in PyTorch as JAX leaves it to XLA
+        lanes = dbc[..., :R].to(f32)
+        ddtraw = ddt * torch.sigmoid(lanes @ Wdt.to(f32) + bdt.to(f32))  # d softplus
+        ddbc = torch.cat([ddtraw @ Wdt.to(f32).t(), dB, dC], dim=-1).to(dbc.dtype)
+        dWdt = (lanes.reshape(-1, R).t() @ ddtraw.reshape(-1, ddtraw.shape[-1])).to(Wdt.dtype)
+        dbdt = ddtraw.sum(dim=(0, 1)).to(bdt.dtype)
+        dA = dA_part.sum(dim=0).t().to(A.dtype)  # [B, N, Di] -> [Di, N]
+        gy = g.to(f32)
+        du = (du_s + gy * D_skip.to(f32)).to(u.dtype)
+        dD = (gy * u.to(f32)).sum(dim=(0, 1)).to(D_skip.dtype)
+        return du, ddbc, dWdt, dbdt, dA, dD
+
+
+@_cuda.counted
+def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
+    """The model's scan: K1 when no gradient is wanted, else :class:`ScanProj`
+    (K2 forward, K3 backward). ``launches`` counts K1's launches."""
+    if _cuda.wants_grad(u, dbc, Wdt, bdt, A, D_skip):
+        return ScanProj.apply(u, dbc, Wdt, bdt, A, D_skip)
+    return _scan_proj(u, dbc, Wdt, bdt, A, D_skip)

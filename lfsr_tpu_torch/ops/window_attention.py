@@ -9,7 +9,10 @@ block at column offset h*T (T = ws*ws).
 
 On CUDA tensors :func:`window_mha_fused` launches csrc/window_attention.cu;
 on CPU tensors it runs the plain twin :func:`window_mha_plain` (the port of
-``window_mha_ref``). All math is float32; x's dtype is kept for I/O.
+``window_mha_ref``). All math is float32; x's dtype is kept for I/O. When a
+gradient is wanted it goes through ``_cuda.PlainVJP`` (kernel forward, the
+twin's gradient), as the JAX custom_vjp (pallas_attention.py:215-227)
+differentiates the XLA reference.
 """
 
 from __future__ import annotations
@@ -53,7 +56,15 @@ def window_mha_plain(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws: int = 8,
 def window_mha_fused(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws: int = 8,
                      heads: int = 4, eps: float = 1e-6):
     """K6: kernel on CUDA tensors, plain twin on CPU tensors. Weights,
-    LayerNorm params, bias and the one-element attn_scale are float32."""
+    LayerNorm params, bias and the one-element attn_scale are float32; all
+    tensors are differentiable."""
+    if _cuda.wants_grad(x, wqkv, wout, ln_g, ln_b, bias, attn_scale):
+        return _cuda.PlainVJP.apply(_window_mha, window_mha_plain, x, wqkv, wout, ln_g, ln_b,
+                                    bias, attn_scale, ws, heads, eps)
+    return _window_mha(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws, heads, eps)
+
+
+def _window_mha(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws, heads, eps):
     if _cuda.use_plain(x):
         return window_mha_plain(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws, heads, eps)
     B, H, W, C = x.shape

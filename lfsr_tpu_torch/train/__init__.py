@@ -1,1 +1,1 @@
-"""Evaluation engine of the port."""
+"""Evaluation and training engines of the port."""

@@ -3,9 +3,12 @@
 Each kernel runs on CUDA tensors and is compared with its plain PyTorch
 twin on the same inputs: float32 with TF32 off to 1e-4 of the output scale
 (sums in another order, ``expf``/``rsqrtf`` rounding), bfloat16 to 3e-2
-(a few bf16 roundings at other places). Also: launch counters, a block at
-K7's gate on the kernels vs on the plain twins, and the small flagship on
-CUDA vs on the CPU.
+(a few bf16 roundings at other places; float32 outputs from bf16 inputs,
+K2's states and K3's gradients, to 1e-4), each output against its own
+scale. Also: launch counters, K2's y equal to K1's bit for bit, the
+gradients of the five autograd Functions (the scan's K2 + K3, and K4-K7)
+on the kernels vs on the twins, a block at K7's gate on the kernels vs on
+the plain twins, and the small flagship on CUDA vs on the CPU.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -27,6 +30,8 @@ from lfsr_tpu_torch.ops.block import LN_MSL_MIN_PIXELS
 pytestmark = pytest.mark.gpu
 
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
+# by output dtype: a float32 output (K2's states, K3's gradients) from bf16
+# inputs is computed in float32 on both sides
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
@@ -47,10 +52,15 @@ def _cases(g, dtype, B, H, W, C, N):
     Di, R, T, c4 = int(1.25 * C), -(-C // 16), 64, C // 4
     L = H * W
     A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(Di, 1).cuda()
+    scan_args = (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, R + 2 * N, s=0.5, dtype=dtype),
+                 _rn(g, R, Di, s=0.3), _rn(g, Di, s=0.1), A, torch.ones(Di, device="cuda"))
+    with torch.no_grad():
+        states = scan.selective_scan_proj_states(*scan_args)[1]
     return {
-        "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain,
-               (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, R + 2 * N, s=0.5, dtype=dtype),
-                _rn(g, R, Di, s=0.3), _rn(g, Di, s=0.1), A, torch.ones(Di, device="cuda"))),
+        "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain, scan_args),
+        "K2": (scan.selective_scan_proj_states, scan.selective_scan_proj_states_plain, scan_args),
+        "K3": (scan.selective_scan_proj_bwd, scan.selective_scan_proj_bwd_plain,
+               (*scan_args[:2], _rn(g, B, L, Di, dtype=dtype), *scan_args[2:5], states)),
         "K4": (cross_scan.cross_scan_gather, cross_scan.cross_scan_gather_plain,
                (_rn(g, B, H, W, C, dtype=dtype), 1 + _rn(g, C, s=0.2), _rn(g, C, s=0.1))),
         "K5": (cross_scan.cross_scan_scatter, cross_scan.cross_scan_scatter_plain,
@@ -67,7 +77,7 @@ def _cases(g, dtype, B, H, W, C, N):
     }
 
 
-@pytest.mark.parametrize("name", ["K1", "K4", "K5", "K6", "K7"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 4), (2, 160, 160, 64, 16),
                                    (2, 40, 72, 64, 16)],
@@ -79,8 +89,41 @@ def test_kernel_matches_plain_twin(cuda, name, dtype, shape):
     got = kern(*args)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    err, scale = _cuda.twin_error(got, plain(*args))
-    assert err <= TOL[dtype] * scale, err
+    want = plain(*args)
+    for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        err, scale = _cuda.twin_error(a, b)
+        assert err <= TOL[a.dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_y_equals_k1_y(cuda, dtype):
+    args = _cases(torch.Generator().manual_seed(1), dtype, 2, 40, 72, 64, 16)["K1"][2]
+    y, states = scan.selective_scan_proj_states(*args)
+    assert torch.equal(y, scan.selective_scan_proj(*args))
+    assert states.dtype == torch.float32 and states.shape == (2, -(-40 * 72 // 64), 16, 80)
+
+
+@pytest.mark.parametrize("name", ["K1", "K4", "K5", "K6", "K7"])
+def test_function_gradients_match_plain_twin(cuda, name):
+    """The autograd Function of each wrapper (the scan's forward K2 and
+    backward K3; K4-K7 kernel forward + the twin's gradient) against
+    autograd through the plain twin, float32, 1e-4 of each gradient's scale."""
+    kern, plain, args = _cases(torch.Generator().manual_seed(2), torch.float32, 2, 40, 72, 64, 16)[name]
+    scan_kernels = (scan.selective_scan_proj_states, scan.selective_scan_proj_bwd)
+    before = [k.launches for k in scan_kernels]
+    outs = []
+    for run in (kern, plain):
+        leaves = [a.detach().clone().requires_grad_(a.is_floating_point()) for a in args]
+        y = run(*leaves)
+        y = y if isinstance(y, tuple) else (y,)
+        cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(3)).cuda() for o in y]
+        wrt = [a for a in leaves if a.requires_grad]
+        outs.append(torch.autograd.grad(y, wrt, cot))
+    if name == "K1":  # forward K2, backward K3, once each
+        assert [k.launches for k in scan_kernels] == [b + 1 for b in before]
+    for g_kern, g_plain in zip(*outs):
+        err, scale = _cuda.twin_error(g_kern, g_plain)
+        assert err <= 1e-4 * scale, err
 
 
 def test_block_at_the_k7_gate_matches_its_plain_twins(cuda):

@@ -1,10 +1,12 @@
-"""``lfsr_tpu_torch`` and ``chip_smoke.py`` run with jax and flax blocked.
+"""``lfsr_tpu_torch`` and ``chip_smoke.py`` run with jax, flax and optax
+blocked.
 
-A fresh interpreter blocks every ``jax``/``jaxlib``/``flax`` import, imports
-every module of the port, runs a CPU forward of the small flagship, a
-tiled and a whole-scene ``evaluate_sets`` and ``infer_submission`` on tiny
-scenes, and checks that no jax module was loaded. The machine with the card
-has no jax at all.
+A fresh interpreter blocks every ``jax``/``jaxlib``/``flax``/``optax``/
+``h5py`` import, imports every module of the port (the trainer, optimizer,
+masking and losses included), runs a CPU forward of the small flagship, a
+tiled and a whole-scene ``evaluate_sets``, ``infer_submission`` on tiny
+scenes and one train step, and checks that no blocked module was loaded.
+The machine with the card has none of them.
 """
 
 import os
@@ -17,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CODE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "orbax")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -73,6 +75,17 @@ with tempfile.TemporaryDirectory() as tmp:
     rep = infer_submission(model, {"Synth": scenes}, whole, Path(tmp) / "sub", log=lambda m: None)
     assert len(list((Path(tmp) / "sub" / "Synth").rglob("*.bmp"))) == 2 * 25
     assert (Path(tmp) / "sub.zip").exists() and rep.checks > 0
+from lfsr_tpu_torch.data.datasets import TrainArrays
+from lfsr_tpu_torch.train.trainer import Trainer
+
+tcfg = cfg.replace(batch_size=2, compute_dtype="float32")
+trainer = Trainer(tcfg, 1, init_params(tcfg, torch.Generator().manual_seed(0)))
+data = TrainArrays(rng.random((2, 40, 40), dtype=np.float32),
+                   rng.random((2, 160, 160), dtype=np.float32))
+before = trainer.params["HLFR_0.out_scale"].clone()
+m = trainer.run_epoch(data, 0)
+assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m
+assert not torch.equal(before, trainer.params["HLFR_0.out_scale"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

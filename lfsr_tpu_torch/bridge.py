@@ -102,23 +102,17 @@ def _lecun_normal_(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:
 def init_params(cfg: Config, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """A random state_dict with flax's initialisers for every parameter
     (lecun-normal kernels, zero biases, unit LayerNorm scales, the Mamba
-    A_log/D init and the modules' constant scales), drawn from
-    ``generator`` on the CPU."""
+    A_log/D init and the constants the model class lists in its
+    ``init_constants()``), drawn from ``generator`` on the CPU."""
     model = get_model(cfg, device="meta")
     modules = dict(model.named_modules())
-    consts = {"IFE_0.scale": 0.2, "SpatialAttention_0.scale": 0.2, "LSFL_0.scale": 0.3,
-              "ProgressiveFusion_0.scale": 0.3, "ProgressiveFusion_0.stage_weights": 0.25,
-              "HLFR_0.out_scale": 0.5}
-    consts.update({f"block_{i}.res_scale": float(v) for i, v in enumerate(model.res_scales)})
-    consts.update({f"{m}.attn_scale": v for m, v in model.attn_scales.items()})
+    consts = model.init_constants()
     out = {}
     for key, p in model.state_dict().items():
         t = torch.empty(p.shape, dtype=torch.float32)
         owner, _, leaf = key.rpartition(".")
         if key in consts:
             t.fill_(consts[key])
-        elif key.endswith("CrossScanSSM_0.scale"):
-            t.fill_(0.15)
         elif isinstance(modules[owner], LayerNorm):
             t.fill_(1.0 if leaf == "weight" else 0.0)
         elif leaf == "A_log":

@@ -3,8 +3,9 @@
 ``infer_submission`` super-resolves the NTIRE ``Real``/``Synth`` test
 scenes with a loaded model, recomposes RGB from each scene's upsampled
 chroma, writes the CodaBench ``<subset>/<scene>/View_i_j.bmp`` tree, then
-packs it into a zip and validates it with the JAX package's jax-free
-``lfsr_tpu.tools.submission``. Whole-scene mode (the flagship's default)
+packs it into a zip and validates it with the port's
+``tools.submission`` (its own copy of the JAX package's packager and
+validator). Whole-scene mode (the flagship's default)
 batches same-geometry scenes as ``evaluate_sets`` does; tiled mode runs
 one scene at a time (both through ``sr_views``).
 
@@ -18,9 +19,9 @@ from pathlib import Path
 
 import numpy as np
 
-from lfsr_tpu.tools.submission import pack_submission, save_scene_views, validate_submission
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.ops.color import views_to_rgb_uint8
+from lfsr_tpu_torch.tools.submission import pack_submission, save_scene_views, validate_submission
 from lfsr_tpu_torch.train.evaluate import sr_views
 
 

@@ -428,7 +428,7 @@ class LFMambaX(nn.Module):
                           + [0.35 + 0.025 * i for i in range(3)])
         else:
             res_scales = list(np.linspace(0.15, 0.425, nb))
-        self.res_scales = res_scales  # res_scale init values (bridge.init_params)
+        self.res_scales = res_scales  # res_scale init values (init_constants)
         self.IFE_0 = IFE(c, dt, device=device)
         for bi in range(nb):
             setattr(self, f"block_{bi}",
@@ -442,6 +442,18 @@ class LFMambaX(nn.Module):
         self.LSFL_0 = LSFL(c, cfg.angRes, dt, device=device)
         self.ProgressiveFusion_0 = ProgressiveFusion(c, nb, dt, device=device)
         self.HLFR_0 = HLFR(c, cfg.scale_factor, dt, device=device)
+
+    def init_constants(self) -> dict[str, float]:
+        """Parameters whose flax init is a constant (``bridge.init_params``):
+        the modules' scales, the blocks' res_scales and the attention scales."""
+        consts = {"IFE_0.scale": 0.2, "SpatialAttention_0.scale": 0.2, "LSFL_0.scale": 0.3,
+                  "ProgressiveFusion_0.scale": 0.3, "ProgressiveFusion_0.stage_weights": 0.25,
+                  "HLFR_0.out_scale": 0.5}
+        for i, v in enumerate(self.res_scales):
+            consts[f"block_{i}.res_scale"] = float(v)
+            consts[f"block_{i}.CrossScanSSM_0.scale"] = 0.15
+        consts.update({f"{m}.attn_scale": v for m, v in self.attn_scales.items()})
+        return consts
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """x [B, H, W, 1] float32 SAI patches -> [B, H*s, W*s, 1] float32.

@@ -1,7 +1,8 @@
 """Model registry of the port (mirrors lfsr_tpu/models/registry.py).
 
-Only the flagship ``LFMambaX`` is ported so far, with its loss
-(``get_loss``: the registered builder, ``composite_v8``). ``get_model`` builds the
+Ported so far: the flagship ``LFMambaX`` (loss ``composite_v8``, whole-scene
+eval by default) and ``EPIT`` (L1, tiled eval), each registered with its
+loss builder (``get_loss``). ``get_model`` builds the
 module without initialising it (parameters are created on the meta device
 and then allocated on ``device``); fill it with ``bridge.init_params`` or
 ``bridge.state_dict_from_flax`` through ``load_state_dict``.
@@ -40,7 +41,8 @@ def register_model(name: str, loss: Callable, whole_scene_ok: bool = False):
 
 
 def spec(name: str) -> ModelSpec:
-    import lfsr_tpu_torch.models.lfmambax  # noqa: F401 — registers the flagship
+    import lfsr_tpu_torch.models.epit  # noqa: F401 — each module registers its model
+    import lfsr_tpu_torch.models.lfmambax  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(f"model {name!r} is not ported; available: {sorted(_REGISTRY)}")

@@ -2,7 +2,7 @@
 
 Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
 plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
-scan's autograd Function (``scan.ScanProj``) and K4-K7 inside
+scan's autograd Function (``scan.ScanProj``) and K4-K8 inside
 ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
+from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
     selective_scan_proj, selective_scan_proj_bwd, selective_scan_proj_states,
 )
@@ -44,6 +45,10 @@ KERNELS = {
     ),
     "K7 ln_msl": (
         ln_msl, "lfsr_tpu_torch/csrc/ln_msl.cu", "lfsr_tpu/ops/pallas_block.py:220",
+    ),
+    "K8 masked_mha_fused": (
+        masked_mha_fused, "lfsr_tpu_torch/csrc/masked_attention.cu",
+        "lfsr_tpu/ops/pallas_masked_attention.py:86",
     ),
 }
 

@@ -55,6 +55,8 @@ _SIGNATURES = {
     # x, gamma, beta, whm, wrest, wk, xn, local, B, H, W, C, c4, slope, eps,
     # dtype, stream
     "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
+    # q, k, v, mask transposed, o, B, L, D, heads, qscale, dtype, stream
+    "lfsr_masked_mha": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -3,8 +3,9 @@ the epoch loop, on one device.
 
 One step, as the JAX ``_build_step``: gather the batch by index on the
 device, augment (flips and transpose), mask views and SRACM when the epoch
-masks (``mask_k > 0``), forward in train mode (the blocks' dropout),
-``composite_v8`` loss, backward, the optimizer (clip, AdamW, NaN-skip), and
+masks (``mask_k > 0``), forward in train mode (the flagship's dropout; a
+model outside ``_TRAIN_FLAG_MODELS`` is called as ``model(x)``), the
+model's registered loss, backward, the optimizer (clip, AdamW, NaN-skip), and
 PSNR/SSIM of the batch under ``no_grad`` (per-view PSNR only when a view is
 under the 11-pixel SSIM window). Nothing in a step reads a value back to
 the host: a run of steps queues on the device, and ``run_epoch`` reads
@@ -38,6 +39,15 @@ from lfsr_tpu_torch.train import masking
 from lfsr_tpu_torch.train.optim import Optimizer
 
 STREAMS = ("permutation", "augment", "mask", "sracm", "dropout")
+
+# Models whose forward takes the train-mode dropout generator (the JAX
+# trainer's ``_TRAIN_FLAG_MODELS``: their __call__ accepts ``train``); every
+# other model is called as ``model(x)``.
+_TRAIN_FLAG_MODELS = {
+    "LFMambaX", "EfficientLFNetV2", "EfficientLFNetV3", "EfficientLFNetV64",
+    "EfficientLFNetV6", "EfficientLFNetV6_1", "EfficientLFNetV6_3",
+    "EfficientLFNetV6_5", "EfficientLFNetV7", "LF_DET",
+}
 
 
 def generators(cfg: Config, epoch: int, device) -> dict[str, torch.Generator]:
@@ -87,6 +97,13 @@ class Trainer:
                                               lr_shape[2] // ang, ratio)
         return d
 
+    def forward(self, x: torch.Tensor, dropout: torch.Generator | None = None) -> torch.Tensor:
+        """The model on x, with the dropout generator for the models that
+        take one (``_TRAIN_FLAG_MODELS``)."""
+        if self.cfg.model_name in _TRAIN_FLAG_MODELS:
+            return self.model(x, generator=dropout)
+        return self.model(x)
+
     def train_step(self, lr: torch.Tensor, hr: torch.Tensor, draws: Draws,
                    dropout: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """One optimizer step on lr [B, A*h, A*w] / hr [B, A*H, A*W] float32
@@ -100,7 +117,7 @@ class Trainer:
             x = masking.apply_view_mask(x, draws.view_keep, ang)
         if draws.sracm_keep is not None:
             x = masking.apply_sracm(x, draws.sracm_keep, ang)
-        sr = self.model(x, generator=dropout)
+        sr = self.forward(x, dropout)
         loss = self.loss_fn(sr, y)
         grads = dict(zip(self.params, torch.autograd.grad(loss, list(self.params.values()))))
         self.opt.step_(self.params, grads, self.opt_state)

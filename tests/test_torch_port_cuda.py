@@ -6,9 +6,10 @@ twin on the same inputs: float32 with TF32 off to 1e-4 of the output scale
 (a few bf16 roundings at other places; float32 outputs from bf16 inputs,
 K2's states and K3's gradients, to 1e-4), each output against its own
 scale. Also: launch counters, K2's y equal to K1's bit for bit, the
-gradients of the five autograd Functions (the scan's K2 + K3, and K4-K7)
+gradients of the six autograd Functions (the scan's K2 + K3, and K4-K8)
 on the kernels vs on the twins, a block at K7's gate on the kernels vs on
-the plain twins, and the small flagship on CUDA vs on the CPU.
+the plain twins, the small flagship and a one-block EPIT on CUDA vs on the
+CPU.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -24,7 +25,8 @@ import torch
 from lfsr_tpu_torch.bridge import init_params
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.registry import get_model
-from lfsr_tpu_torch.ops import _cuda, block, cross_scan, scan, window_attention
+from lfsr_tpu_torch.models.epit import band_mask
+from lfsr_tpu_torch.ops import _cuda, block, cross_scan, masked_attention, scan, window_attention
 from lfsr_tpu_torch.ops.block import LN_MSL_MIN_PIXELS
 
 pytestmark = pytest.mark.gpu
@@ -157,3 +159,61 @@ def test_small_flagship_on_cuda_matches_cpu(cuda, dtype, tol):
         with torch.inference_mode():
             outs.append(model(x.to(dev)).cpu())
     assert (outs[1] - outs[0]).abs().max().item() <= tol
+
+
+def _k8_case(g, dtype, B, L, D, heads):
+    """q, k, v [B, L, D] and a band mask: EPIT's own at L = 160 (5 x 32
+    tokens), else an 11-wide band over the sequence."""
+    q, k, v = (_rn(g, B, L, D, dtype=dtype) for _ in range(3))
+    if L == 160:
+        mask = band_mask(5, 32, 10, 11, torch.device("cuda"))
+    else:
+        i = torch.arange(L)
+        mask = torch.where((i[None] - i[:, None]).abs() <= 5, 0.0, float("-inf")).cuda()
+    return q, k, v, mask, heads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 128, 4), (8, 32, 128, 8), (64, 160, 128, 8),
+                                   (4, 40, 256, 8), (3, 37, 128, 8)],
+                         ids=["hd32", "hd16", "epit", "d256", "ragged"])
+def test_k8_matches_plain_twin(cuda, dtype, shape):
+    args = _k8_case(torch.Generator().manual_seed(4), dtype, *shape)
+    before = masked_attention.masked_mha_fused.launches
+    got = masked_attention.masked_mha_fused(*args)
+    torch.cuda.synchronize()
+    assert masked_attention.masked_mha_fused.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    err, scale = _cuda.twin_error(got, masked_attention.masked_mha_plain(*args))
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_k8_function_gradients_match_plain_twin(cuda):
+    """K8's PlainVJP (kernel forward, the twin's gradient) against autograd
+    through the twin, float32, 1e-4 of each gradient's scale."""
+    args = _k8_case(torch.Generator().manual_seed(5), torch.float32, 4, 160, 128, 8)
+    cot = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(6)).cuda()
+    outs = []
+    for run in (masked_attention.masked_mha_fused, masked_attention.masked_mha_plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args[:3]]
+        outs.append(torch.autograd.grad(run(*leaves, *args[3:]), leaves, cot))
+    for g_kern, g_plain in zip(*outs):
+        err, scale = _cuda.twin_error(g_kern, g_plain)
+        assert err <= 1e-4 * scale, err
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_one_block_epit_on_cuda_matches_cpu(cuda, dtype, tol):
+    cfg = Config(model_name="EPIT", compute_dtype=dtype, model_kwargs={"n_blocks": 1})
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    x = torch.rand(2, 40, 40, 1, generator=torch.Generator().manual_seed(1))
+    outs = []
+    before = masked_attention.masked_mha_fused.launches
+    for dev in ("cpu", cuda):
+        model = get_model(cfg, device=dev)
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            outs.append(model(x.to(dev)).cpu())
+    assert masked_attention.masked_mha_fused.launches == before + 2  # both EPI passes, on CUDA
+    err, scale = _cuda.twin_error(outs[1], outs[0])
+    assert err <= tol * scale, err

@@ -1,12 +1,15 @@
-"""``lfsr_tpu_torch`` and ``chip_smoke.py`` run with jax, flax and optax
-blocked.
+"""``lfsr_tpu_torch`` and ``chip_smoke.py`` run with the JAX package, jax,
+flax and optax blocked.
 
-A fresh interpreter blocks every ``jax``/``jaxlib``/``flax``/``optax``/
-``h5py`` import, imports every module of the port (the trainer, optimizer,
-masking and losses included), runs a CPU forward of the small flagship, a
-tiled and a whole-scene ``evaluate_sets``, ``infer_submission`` on tiny
-scenes and one train step, and checks that no blocked module was loaded.
-The machine with the card has none of them.
+A fresh interpreter blocks every ``lfsr_tpu``/``jax``/``jaxlib``/``flax``/
+``optax``/``h5py``/``orbax`` import (``lfsr_tpu_torch`` is a package of its
+own name and passes), imports every module of the port (the trainer,
+optimizer, masking, losses and submission tools included), runs a CPU
+forward of the small flagship, a tiled and a whole-scene
+``evaluate_sets``, ``infer_submission`` on tiny scenes and one train step,
+then a forward and one train step of a one-block EPIT, and checks that no
+blocked module was loaded. The machine with the card has none of the
+third-party ones, and the port imports nothing of the JAX package.
 """
 
 import os
@@ -19,7 +22,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CODE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "orbax")
+BLOCKED = ("lfsr_tpu", "jax", "jaxlib", "flax", "optax", "h5py", "orbax")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -86,6 +89,19 @@ before = trainer.params["HLFR_0.out_scale"].clone()
 m = trainer.run_epoch(data, 0)
 assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m
 assert not torch.equal(before, trainer.params["HLFR_0.out_scale"])
+
+ecfg = Config(model_name="EPIT", compute_dtype="float32", batch_size=2,
+              model_kwargs={"n_blocks": 1})  # full width: K8's wrapper, its twin on the CPU
+emodel = get_model(ecfg)
+emodel.load_state_dict(init_params(ecfg, torch.Generator().manual_seed(0)))
+with torch.inference_mode():
+    y = emodel(torch.rand(1, 40, 40, 1, generator=torch.Generator().manual_seed(2)))
+assert y.shape == (1, 160, 160, 1) and torch.isfinite(y).all()
+trainer = Trainer(ecfg, 1, init_params(ecfg, torch.Generator().manual_seed(0)))
+before = trainer.params["Conv_2.weight"].clone()
+m = trainer.run_epoch(data, 0)
+assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m
+assert not torch.equal(before, trainer.params["Conv_2.weight"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

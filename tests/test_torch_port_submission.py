@@ -4,7 +4,9 @@
 ``infer_submission`` (whole-scene and tiled) must write the BMP bytes the
 JAX pipeline writes (``test.py``'s recomposition, then
 ``save_scene_views``) at both NTIRE test geometries. A nearest-neighbour
-stand-in model makes the expected SR views exact.
+stand-in model makes the expected SR views exact. The port's own BMP codec
+and submission validator (``lfsr_tpu_torch.tools``) must give the JAX
+package's bytes and reports on the same views and trees.
 """
 
 import importlib.util
@@ -15,7 +17,10 @@ import pytest
 import torch
 
 from lfsr_tpu.config import Config
+from lfsr_tpu.tools import bmp as jbmp
 from lfsr_tpu.tools import submission
+from lfsr_tpu_torch.tools import bmp as tbmp
+from lfsr_tpu_torch.tools import submission as tsubmission
 from lfsr_tpu_torch.data.datasets import TestScene
 from lfsr_tpu_torch.inference import infer_submission
 from lfsr_tpu_torch.ops.color import views_to_rgb_uint8
@@ -89,3 +94,51 @@ def test_infer_submission_writes_the_jax_pipelines_bytes(tmp_path, whole):
             for bmp in sorted((tmp_path / "want" / sub / f["name"]).glob("*.bmp")):
                 got = tmp_path / "sub" / sub / f["name"] / bmp.name
                 assert got.read_bytes() == bmp.read_bytes(), got
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (13, 4), (32, 30), (1, 1)])
+def test_port_bmp_codec_writes_the_jax_packages_bytes(hw):
+    rgb = np.random.default_rng(hw[0] * 100 + hw[1]).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    data = tbmp.encode_bmp(rgb)
+    assert data == jbmp.encode_bmp(rgb)
+    assert tbmp.parse_header(data) == jbmp.parse_header(data)
+    np.testing.assert_array_equal(tbmp.decode_bmp(data), rgb)
+
+
+def _tree(root, save, scenes, dims, dark=None):
+    """A {Real, Synth} tree written with ``save``: ``scenes[subset]`` scenes
+    of random views at ``dims[subset]`` (W, H); ``dark`` = (subset, scene
+    index) gets near-black views."""
+    rng = np.random.default_rng(11)
+    for sub, n in scenes.items():
+        w, h = dims[sub]
+        for i in range(n):
+            views = rng.integers(30, 220, (ANG, ANG, h, w, 3), dtype=np.uint8)
+            if dark == (sub, i):
+                views //= 20
+            save(root / sub / f"scene{i}", views)
+
+
+def test_port_validator_reports_what_the_jax_validator_reports(tmp_path):
+    scenes, dims = {"Real": 2, "Synth": 3}, {"Real": (12, 8), "Synth": (10, 10)}
+    for pkg, tag in ((tsubmission, "port"), (submission, "jax")):
+        _tree(tmp_path / tag, pkg.save_scene_views, scenes, dims, dark=("Synth", 1))
+    # the two packages wrote the same bytes
+    for f in sorted((tmp_path / "jax").rglob("*.bmp")):
+        assert (tmp_path / "port" / f.relative_to(tmp_path / "jax")).read_bytes() == f.read_bytes()
+    (tmp_path / "port" / "Real" / "scene1" / "View_0_0.bmp").write_bytes(b"BM junk")
+    (tmp_path / "jax" / "Real" / "scene1" / "View_0_0.bmp").write_bytes(b"BM junk")
+    for expected_dims in ({"Real": (624, 432), "Synth": (500, 500)}, dims):
+        reports = []
+        for pkg, tag in ((tsubmission, "port"), (submission, "jax")):
+            prev = pkg.EXPECTED_DIMS
+            pkg.EXPECTED_DIMS = expected_dims
+            try:
+                target = pkg.pack_submission(tmp_path / tag, tmp_path / f"{tag}.zip")
+                reports.append([(r.errors, r.warnings, r.checks, r.ok)
+                                for r in (pkg.validate_submission(tmp_path / tag),
+                                          pkg.validate_submission(target))])
+            finally:
+                pkg.EXPECTED_DIMS = prev
+        assert reports[0] == reports[1]
+        assert not reports[0][0][3] and reports[0][0][0]  # errors found, the same ones

@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
     python3 chip_smoke.py --train-only    # build + kernels + the flagship's training phase
     python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
+    python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval
+    python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval
     python3 chip_smoke.py --profile       # + torch.profiler traces of one dispatch / step each
 
 Phases (any failure exits non-zero):
@@ -18,7 +20,11 @@ Phases (any failure exits non-zero):
    ([4, 640, 880, 64]); those four and K7 LayerNorm + local branch at a
    Synth one ([4, 720, 720, 64]); K2 (the scan's training forward, whose y
    must equal K1's bit for bit), K3 (its adjoint) and K4-K7 at the batch-8
-   training shape ([8, 160, 160, 64], scan [8, 25600, 80]); K8 (EPIT's
+   training shape ([8, 160, 160, 64], scan [8, 25600, 80]); K9b (the
+   gated-epilogue scan + out-projection of ``scan_impl='gated'``) and K9c
+   (the fused Mamba inner pipeline of ``'fused'``) at the tiled scan shape
+   [2, 25600, 80], the Synth one [4, 518400, 80] and the Real one
+   [4, 563200, 80]; K8 (EPIT's
    banded-mask attention) at EPIT's tiled eval (q/k/v [320, 160, 128]) and
    batch-8 training ([1280, 160, 128]), with EPIT's own mask, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the library
@@ -44,7 +50,12 @@ Phases (any failure exits non-zero):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
    (432x624 HR), one dispatch each: launch counts per dispatch (K7 on the
    square Synth mosaic only), finite SR and metrics, ms/scene and peak
-   memory; one scene per geometry against the plain twins.
+   memory; one scene per geometry against the plain twins. Then the same
+   8 scenes under ``Config(model_kwargs={'scan_impl': impl})`` for impl in
+   ('gated', 'fused'), with the same seeded parameters: K9b or K9c 12 per
+   dispatch and K1 0, ms/scene beside the default's, scene 0 of both
+   geometries within the SR bound of the default path's views, Synth
+   scene 0 against the plain twins.
 6. Submission: ``infer_submission`` of 16 Synth + 16 Real synthetic scenes
    into a temporary directory; the NTIRE validator must report no error.
 7. EPIT (64 channels, 5 AltFilters, 8 heads, bf16, seeded init), its
@@ -110,6 +121,11 @@ TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
 EPIT_PER_FORWARD = {"K8 masked_mha_fused": 10}
+# the flagship's opt-in scans: each takes K1's place, 12 per forward
+SCAN_IMPL_KERNELS = {"gated": "K9b scan_gated_fused", "fused": "K9c mamba_inner_fused"}
+# at a whole-scene L the scans' twins run one batch row at a time: the
+# arguments of each kernel that are sliced along the batch
+BY_ROWS = {"K1": (0, 1), "K9b": (0, 1, 3, 4, 5), "K9c": (0, 1)}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, matrix
 # products of bf16 operands on the tensor cores, float32 on the CUDA cores
@@ -147,9 +163,12 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
     """Yields (kernel, where, operands) at the main paths' shapes, each made
     on the card when it is reached: K2, K3 and K4-K7 at the batch-8 train
     step (160x160 SAI patches; 64 channels, Di 80, d_state 16, dt rank 4);
-    K1/K4/K5/K6 at tiled eval (minibatch 2); all five eval kernels at a
-    Synth whole-scene dispatch; K1/K4/K5/K6 at a Real one (K7 is not taken
-    on the non-square Real mosaic); K8 at EPIT's tiled eval (2 patches x
+    K1/K4/K5/K6 and K9b/K9c (the ``scan_impl='gated'``/``'fused'`` scans,
+    their operands laid out as the model gives them: B and C slices of dbc,
+    xs and z halves of in_proj's output) at tiled eval (minibatch 2); all
+    five eval kernels and K9b/K9c at a Synth whole-scene dispatch;
+    K1/K4/K5/K6 and K9b/K9c at a Real one (K7 is not taken on the
+    non-square Real mosaic); K8 at EPIT's tiled eval (2 patches x
     5 x 32 sequences) and batch-8 train step (8 x 5 x 32), L = 5 x 32 tokens
     of 128 channels, 8 heads, EPIT's own band mask. ``only``: the kernels
     to yield (default all)."""
@@ -174,6 +193,16 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
                                 rn(R, Di, s=0.3), rn(Di, s=0.1))
             states = scan.selective_scan_proj_states(u, dbc, wdt, bdt, A, torch.ones(Di, device=dev))[1]
             return u, dbc, rn(B, L, Di, dt=dtype), wdt, bdt, A, states
+        if name == "K9b":  # u, dt_raw (pre-softplus), A, B, C, z, D, W_out
+            dbc, xz = rn(B, L, R + 2 * N, s=0.5, dt=dtype), rn(B, L, 2 * Di, dt=dtype)
+            return (rn(B, L, Di, s=0.5, dt=dtype), rn(B, L, Di, s=0.5, dt=dtype), A,
+                    dbc[..., R : R + N], dbc[..., R + N :], xz[..., Di:],
+                    torch.ones(Di, device=dev), rn(Di, C, s=Di**-0.5, dt=dtype), True)
+        if name == "K9c":  # xs, z, wconv, bconv, Wx, Wdt, bdt, A, D
+            xz = rn(B, L, 2 * Di, dt=dtype)
+            return (xz[..., :Di], xz[..., Di:], rn(4, Di, s=0.3), rn(Di, s=0.1),
+                    rn(Di, R + 2 * N, s=Di**-0.5), rn(R, Di, s=0.3), rn(Di, s=0.1), A,
+                    torch.ones(Di, device=dev))
         if name == "K4":
             return rn(B, H, W, C, dt=dtype), 1 + rn(C, s=0.2), rn(C, s=0.1)
         if name == "K5":
@@ -192,9 +221,11 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
     for where, shape, names in (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7")),
-                                ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6")),
-                                ("synth", mosaic(SYNTH_HR), ("K1", "K4", "K5", "K6", "K7")),
-                                ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6"))):
+                                ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K9b", "K9c")),
+                                ("synth", mosaic(SYNTH_HR),
+                                 ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c")),
+                                ("real", mosaic(REAL_HR),
+                                 ("K1", "K4", "K5", "K6", "K9b", "K9c"))):
         for name in names:
             if only is None or name in only:
                 yield name, where, operands(name, *shape)
@@ -232,6 +263,14 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
         R, N = wdt.shape[0], A.shape[1]
         per = 2 * R + 6 + (21 if name == "K3" else 7) * N  # K3: recompute + adjoint
         return nbytes, 0.0, float(x.numel() * per)
+    if name == "K9b":  # per (b, t, channel): softplus, the scan as K1's, D skip and the
+        # silu(z) gate; the out-projection's product (of W_out's dtype)
+        N, Dout = args[2].shape[1], args[7].shape[1]
+        return nbytes, 2.0 * x.numel() * Dout, float(x.numel() * (6 + 7 * N + 7))
+    if name == "K9c":  # per (b, t, channel), all float32: conv + bias + SiLU, x_proj's
+        # product, the dt projection + softplus, the scan, D skip and the gate
+        KC, J, R, N = args[2].shape[0], args[4].shape[1], args[5].shape[0], args[7].shape[1]
+        return nbytes, 0.0, float(x.numel() * (2 * KC + 5 + 2 * J + 2 * R + 6 + 7 * N + 7))
     if name == "K4":  # LayerNorm
         return nbytes, 0.0, 8.0 * x.numel()
     if name == "K5":  # C x C mix + scaled residual
@@ -289,6 +328,8 @@ def check_kernels(results: dict, only=None) -> None:
         "K6": (wa.window_mha_fused, wa.window_mha_plain),
         "K7": (block.ln_msl, block.ln_msl_plain),
         "K8": (ma.masked_mha_fused, ma.masked_mha_plain),
+        "K9b": (scan.scan_gated_fused, scan.scan_gated_plain),
+        "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1 and K4-K7 at the Synth
@@ -301,10 +342,10 @@ def check_kernels(results: dict, only=None) -> None:
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g, only):
             kern, plain = pairs[name]
-            # K1 at a whole-scene L: ~0.1 s per launch, ~1 s per twin call
-            big = name == "K1" and where != "tiled"
+            # the scans at a whole-scene L: ~0.1 s per launch, ~1 s per twin call
+            big = name in BY_ROWS and where != "tiled"
             if big:
-                plain = by_rows(plain)
+                plain = by_rows(plain, BY_ROWS[name])
             got = kern(*args)
             torch.cuda.synchronize()
             if name == "K2":  # the training forward's y is K1's, bit for bit
@@ -431,10 +472,20 @@ def profile_dispatch(model, x, label: str, reps: int = 3) -> None:
     profile_run(run, f"{label} dispatch {tuple(x.shape)}", reps)
 
 
-def eval_launches(forwards: int, k7_forwards: int) -> dict:
+def per_forward(impl: str = "pallas") -> dict:
+    """Launches per flagship forward under ``scan_impl=impl``: K9b or K9c
+    in K1's place."""
+    if impl == "pallas":
+        return PER_FORWARD
+    out = {k: n for k, n in PER_FORWARD.items() if k != "K1 selective_scan_proj"}
+    return {**out, SCAN_IMPL_KERNELS[impl]: PER_FORWARD["K1 selective_scan_proj"]}
+
+
+def eval_launches(forwards: int, k7_forwards: int, impl: str = "pallas") -> dict:
     """Launches of ``forwards`` eval forwards, ``k7_forwards`` of them at
     K7's gate (K2 and K3 do not run in eval)."""
-    return {k: n * (k7_forwards if k == "K7 ln_msl" else forwards) for k, n in PER_FORWARD.items()}
+    return {k: n * (k7_forwards if k == "K7 ln_msl" else forwards)
+            for k, n in per_forward(impl).items()}
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
@@ -497,27 +548,23 @@ def run_tiled(model, cfg, per_dispatch: dict, what: str = "tiled") -> dict:
     return counts
 
 
-def run_whole(model, synth: list, real: list, profile: bool) -> dict:
-    """Whole-scene evaluate_sets, one dispatch per geometry (both warmed up
-    first), each between its own count reset and read. Returns the
-    launches of both."""
-    from lfsr_tpu_torch.config import Config
-    from lfsr_tpu_torch.ops import KERNELS, _cuda, launch_counts, reset_launch_counts
+def whole_dispatches(model, cfg, synth: list, real: list, what: str, impl: str = "pallas"):
+    """Whole-scene ``evaluate_sets`` of ``cfg``, one dispatch per geometry
+    (both warmed up first), each between its own count reset and read:
+    launch counts per dispatch (K7 on the square Synth mosaic only), finite
+    SR and metrics, ms/scene and peak memory. Returns the launches of both
+    and, per geometry, (scene 0's SR views, ms/scene, peak GiB)."""
+    from lfsr_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
     from lfsr_tpu_torch.train.evaluate import _whole_pad_batch, evaluate_sets
 
-    cfg = Config()
     ang, s, mb = cfg.angRes, cfg.scale_factor, cfg.whole_scene_minibatch
     assert len(synth) == len(real) == mb, "one dispatch per geometry"
     for subset, scenes in (("Synth", synth), ("Real", real)):  # warm-up, both geometries
         evaluate_sets(model, {subset: scenes}, cfg, log=lambda m: None)
     torch.cuda.synchronize()
-    if profile:
-        x = _whole_pad_batch(torch.as_tensor(np.stack([sc.lr_y for sc in synth]), device=DEVICE),
-                             ang, cfg.whole_scene_pad)[0][..., None]
-        profile_dispatch(model, x, "whole-scene Synth", reps=1)
 
     total = dict.fromkeys(KERNELS, 0)
-    views = {}
+    out = {}
     for subset, scenes, k7 in (("Synth", synth, 1), ("Real", real, 0)):
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -526,37 +573,99 @@ def run_whole(model, synth: list, real: list, profile: bool) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-        check_counts(counts, eval_launches(1, k7), f"whole {subset}")
+        check_counts(counts, eval_launches(1, k7, impl), f"{what} {subset}")
         total = {k: total[k] + counts[k] for k in total}
-        check_views(res[subset]["views"], scenes, ang, s, f"whole {subset}")
+        check_views(res[subset]["views"], scenes, ang, s, f"{what} {subset}")
         assert np.isfinite(res[subset]["psnr"]) and np.isfinite(res[subset]["ssim"]), res
-        views[subset] = res[subset]["views"][scenes[0].name]
+        ms, peak = 1e3 * seconds / len(scenes), torch.cuda.max_memory_allocated() / 2**30
+        out[subset] = (res[subset]["views"][scenes[0].name], ms, peak)
         p, ss = bicubic_baseline(scenes[0], ang, s)
         mosaic = _whole_pad_batch(torch.zeros(1, *scenes[0].lr_y.shape), ang,
                                   cfg.whole_scene_pad)[0].shape[1:]
-        log(f"[whole {subset}] {len(scenes)} scenes of {tuple(scenes[0].lr_y.shape)} LR -> one "
-            f"dispatch of {mb}x{tuple(mosaic)}: {1e3 * seconds / len(scenes):.1f} ms/scene, "
-            f"{len(scenes) / seconds:.4f} scenes/s, peak mem "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; PSNR/SSIM "
+        log(f"[{what} {subset}] {len(scenes)} scenes of {tuple(scenes[0].lr_y.shape)} LR -> one "
+            f"dispatch of {mb}x{tuple(mosaic)}: {ms:.1f} ms/scene, "
+            f"{len(scenes) / seconds:.4f} scenes/s, peak mem {peak:.2f} GiB; PSNR/SSIM "
             f"{res[subset]['psnr']:.4f}/{res[subset]['ssim']:.4f} (random init), scene 0 "
             f"bicubic {p:.4f}/{ss:.4f} ({CARD})")
         del res
     torch.cuda.empty_cache()
+    return total, out
 
-    # one scene per geometry on the plain twins (minibatch 1: the K1 twin's
-    # log-depth scan holds several [B, L, 80, 16] float32 tensors)
-    one = cfg.replace(whole_scene_minibatch=1)
+
+def plain_scene0(model, cfg, subset: str, scenes: list):
+    """Scene 0's SR views on the plain twins (minibatch 1: the scan twins'
+    log-depth scans hold several [B, L, 80, 16] float32 tensors)."""
+    from lfsr_tpu_torch.ops import _cuda
+    from lfsr_tpu_torch.train.evaluate import evaluate_sets
+
+    with _cuda.force_plain():
+        res = evaluate_sets(model, {subset: scenes[:1]}, cfg.replace(whole_scene_minibatch=1),
+                            log=lambda m: None, keep_views=True)
+    torch.cuda.empty_cache()
+    return res[subset]["views"][scenes[0].name], res[subset]["psnr"]
+
+
+def run_whole(model, synth: list, real: list, profile: bool):
+    """Whole-scene evaluate_sets of ``Config()`` (``whole_dispatches``) and
+    one scene per geometry against the plain twins. Returns the launches
+    and, per geometry, (scene 0's views, ms/scene, peak GiB)."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.ops import _cuda
+    from lfsr_tpu_torch.train.evaluate import _whole_pad_batch
+
+    cfg = Config()
+    total, out = whole_dispatches(model, cfg, synth, real, "whole")
+    if profile:
+        x = _whole_pad_batch(torch.as_tensor(np.stack([sc.lr_y for sc in synth]), device=DEVICE),
+                             cfg.angRes, cfg.whole_scene_pad)[0][..., None]
+        profile_dispatch(model, x, "whole-scene Synth", reps=1)
     for subset, scenes in (("Synth", synth), ("Real", real)):
-        with _cuda.force_plain():
-            res_plain = evaluate_sets(model, {subset: scenes[:1]}, one, log=lambda m: None,
-                                      keep_views=True)
-        err, scale = _cuda.twin_error(views[subset], res_plain[subset]["views"][scenes[0].name])
+        want, psnr = plain_scene0(model, cfg, subset, scenes)
+        err, scale = _cuda.twin_error(out[subset][0], want)
         log(f"[whole {subset}] kernels vs plain twins, scene 0: max|d SR| = {err:.3e} "
-            f"(bound {SR_BOUND} x {scale:.3f}); PSNR on the twins "
-            f"{res_plain[subset]['psnr']:.4f} dB")
+            f"(bound {SR_BOUND} x {scale:.3f}); PSNR on the twins {psnr:.4f} dB")
         assert err <= SR_BOUND * scale, (subset, err, scale)
-        del res_plain
-        torch.cuda.empty_cache()
+    return total, out
+
+
+def run_scan_impl(impl: str, sd, synth: list, real: list, ref: dict, profile: bool) -> dict:
+    """The flagship's whole-scene eval under ``model_kwargs={'scan_impl':
+    impl}`` (K9b or K9c in K1's place) with the 'pallas' model's seeded
+    parameters: ``whole_dispatches`` of the same scenes, ms/scene beside the
+    'pallas' path's (``ref``, from ``whole_dispatches``), scene 0 of both
+    geometries against the 'pallas' path's views (the same function, other
+    roundings) and Synth scene 0 against the plain twins. Returns the
+    launches."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.models.registry import get_model
+    from lfsr_tpu_torch.ops import _cuda
+    from lfsr_tpu_torch.train.evaluate import _whole_pad_batch
+
+    cfg = Config(model_kwargs={"scan_impl": impl})
+    model = get_model(cfg, device=DEVICE)
+    assert list(model.state_dict()) == list(sd), "the param tree depends on scan_impl"
+    model.load_state_dict(sd)
+    what = f"{impl} whole"
+    total, out = whole_dispatches(model, cfg, synth, real, what, impl)
+    if profile:
+        x = _whole_pad_batch(torch.as_tensor(np.stack([sc.lr_y for sc in synth]), device=DEVICE),
+                             cfg.angRes, cfg.whole_scene_pad)[0][..., None]
+        profile_dispatch(model, x, f"{impl} whole-scene Synth", reps=1)
+    for subset in ("Synth", "Real"):
+        (views, ms, peak), (pviews, pms, ppeak) = out[subset], ref[subset]
+        err, scale = _cuda.twin_error(views, pviews)
+        log(f"[{what} {subset}] {ms:.1f} ms/scene ({1e3 / ms:.4f} scenes/s), peak {peak:.2f} "
+            f"GiB | 'pallas' {pms:.1f} ms/scene ({1e3 / pms:.4f} scenes/s), peak {ppeak:.2f} "
+            f"GiB; scene 0 vs 'pallas': max|d SR| = {err:.3e} (bound {SR_BOUND} x {scale:.3f}) "
+            f"({CARD})")
+        assert err <= SR_BOUND * scale, (impl, subset, err, scale)
+    want, psnr = plain_scene0(model, cfg, "Synth", synth)
+    err, scale = _cuda.twin_error(out["Synth"][0], want)
+    log(f"[{what} Synth] kernels vs plain twins, scene 0: max|d SR| = {err:.3e} "
+        f"(bound {SR_BOUND} x {scale:.3f}); PSNR on the twins {psnr:.4f} dB")
+    assert err <= SR_BOUND * scale, (impl, err, scale)
+    del model
+    torch.cuda.empty_cache()
     return total
 
 
@@ -738,10 +847,20 @@ def add(*counts: dict) -> dict:
     return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
 
 
+def flagship_scenes():
+    """The 16 Synth and 16 Real synthetic scenes of the flagship's
+    whole-scene and submission phases (the first EVAL_SCENES of each are
+    the whole-scene phases')."""
+    rng = np.random.default_rng(SEED + 1)
+    synth = [make_scene(rng, f"synth{i:02d}", SYNTH_HR) for i in range(SUBMISSION_SCENES)]
+    real = [make_scene(rng, f"real{i:02d}", REAL_HR) for i in range(SUBMISSION_SCENES)]
+    return synth, real
+
+
 def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
-    """The flagship's paths: train, tiled, whole-scene, submission. Returns
-    the launches of their timed runs, each counted between its own reset
-    and read."""
+    """The flagship's paths: train, tiled, whole-scene (under each
+    ``scan_impl``), submission. Returns the launches of their timed runs,
+    each counted between its own reset and read."""
     from lfsr_tpu_torch.config import Config
     from lfsr_tpu_torch.models.registry import whole_scene_default
 
@@ -755,12 +874,26 @@ def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
         profile_tiled_dispatch(model, cfg)
     tiled = run_tiled(model, Config(whole_scene_for_test=False), eval_launches(1, 0))
 
-    rng = np.random.default_rng(SEED + 1)
-    synth = [make_scene(rng, f"synth{i:02d}", SYNTH_HR) for i in range(SUBMISSION_SCENES)]
-    real = [make_scene(rng, f"real{i:02d}", REAL_HR) for i in range(SUBMISSION_SCENES)]
-    whole = run_whole(model, synth[:EVAL_SCENES], real[:EVAL_SCENES], profile)
+    synth, real = flagship_scenes()
+    whole, ref = run_whole(model, synth[:EVAL_SCENES], real[:EVAL_SCENES], profile)
+    impls = [run_scan_impl(impl, sd, synth[:EVAL_SCENES], real[:EVAL_SCENES], ref, profile)
+             for impl in SCAN_IMPL_KERNELS]
     run_submission(model, synth, real)
-    return add(launches, tiled, whole)
+    return add(launches, tiled, whole, *impls)
+
+
+def run_scan_impl_alone(impl: str, profile: bool = False) -> dict:
+    """``--scan-impl``: the 'pallas' model's whole-scene dispatches (the
+    reference, counted and timed but not held against the twins), then
+    ``run_scan_impl``. Returns the launches of the latter."""
+    from lfsr_tpu_torch.config import Config
+
+    model, sd = seeded_model(Config(), 693_998)
+    synth, real = (sc[:EVAL_SCENES] for sc in flagship_scenes())
+    ref = whole_dispatches(model, Config(), synth, real, "whole")[1]
+    del model
+    torch.cuda.empty_cache()
+    return run_scan_impl(impl, sd, synth, real, ref, profile)
 
 
 def run_epit(profile: bool = False, eval_paths: bool = True) -> dict:
@@ -795,8 +928,13 @@ def main() -> int:
                          "whole-scene) dispatch of each model with torch.profiler")
     ap.add_argument("--train-only", action="store_true",
                     help="after the kernel phase run the training phases only (no eval paths)")
-    ap.add_argument("--model", choices=("LFMambaX", "EPIT"),
-                    help="only this model's kernels and phases (default: both)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--model", choices=("LFMambaX", "EPIT"),
+                      help="only this model's kernels and phases (default: both)")
+    only.add_argument("--scan-impl", choices=tuple(SCAN_IMPL_KERNELS),
+                      help="only the flagship's kernel of this scan_impl (K9b or K9c) and its "
+                           "whole-scene eval phase, beside the 'pallas' dispatches it is held "
+                           "against")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -815,8 +953,10 @@ def main() -> int:
     log(f"[build] nvcc sm_90a -> {_cuda.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7"), "EPIT": ("K8",),
-             None: None}[args.model]
+    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9b", "K9c"),
+             "EPIT": ("K8",), None: None}[args.model]
+    if args.scan_impl:
+        names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     results: dict = {}
     check_kernels(results, names)
     if args.kernels_only:
@@ -824,9 +964,12 @@ def main() -> int:
         return 0
     eval_paths = not args.train_only
     runs = []
-    if args.model in (None, "LFMambaX"):
+    if args.scan_impl:
+        eval_paths = True
+        runs.append(run_scan_impl_alone(args.scan_impl, profile=args.profile))
+    if args.model in (None, "LFMambaX") and not args.scan_impl:
         runs.append(run_flagship(profile=args.profile, eval_paths=eval_paths))
-    if args.model in (None, "EPIT"):
+    if args.model in (None, "EPIT") and not args.scan_impl:
         runs.append(run_epit(profile=args.profile, eval_paths=eval_paths))
     launches = add(*runs)
     kernels = [

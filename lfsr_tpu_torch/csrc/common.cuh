@@ -39,4 +39,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// allow a kernel more than the default 48 KB of dynamic shared memory
+inline cudaError_t set_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 }  // namespace lfsr

@@ -10,7 +10,8 @@ model makes (a float32 ``scale`` parameter times a bf16 tensor) are kept,
 so the residual stream between blocks is float32 as on the TPU.
 
 The kernels of the TPU path: K1 (Mamba scan; K2/K3 forward and adjoint
-when a gradient is wanted), K4/K5 (cross-scan gather and scatter), K6
+when a gradient is wanted; K9b or K9c in its place under
+``model_kwargs={'scan_impl': 'gated' | 'fused'}``), K4/K5 (cross-scan gather and scatter), K6
 (window attention) and, on blocks at or above its gate (whole-scene square
 mosaics, batch-8 training patches), K7 (LayerNorm + local branch) run as
 the port's CUDA kernels on CUDA tensors. ``module.train()`` turns on the
@@ -119,14 +120,16 @@ class MultiScaleLocal(nn.Module):
 
 class CrossScanSSM(nn.Module):
     """4-way cross-scan through one shared Mamba: K4 (permute + LayerNorm)
-    -> Mamba (K1) -> K5 (un-permute + 1x1 mix + scaled residual)."""
+    -> Mamba (K1, K9b or K9c by ``scan_impl``) -> K5 (un-permute + 1x1 mix +
+    scaled residual)."""
 
     def __init__(self, feats: int, d_state: int, d_conv: int, expand: float, dt,
-                 device=None):
+                 device=None, scan_impl: str = "pallas"):
         super().__init__()
         self.dtype = dt
         self.LayerNorm_0 = LayerNorm(feats, device=device)
-        self.mamba = Mamba(feats, d_state, d_conv, expand, dtype=dt, device=device)
+        self.mamba = Mamba(feats, d_state, d_conv, expand, scan_impl=scan_impl, dtype=dt,
+                           device=device)
         self.Conv_0 = _pw(feats, feats, dt, device=device)
         self.scale = nn.Parameter(torch.empty(1, device=device))
 
@@ -154,12 +157,13 @@ class LFVSSMBlock(nn.Module):
     DROPOUT = 0.1
 
     def __init__(self, feats: int, d_state: int, d_conv: int, expand: float, dt,
-                 device=None):
+                 device=None, scan_impl: str = "pallas"):
         super().__init__()
         self.feats, self.dtype = feats, dt
         self.LayerNorm_0 = LayerNorm(feats, device=device)
         self.MultiScaleLocal_0 = MultiScaleLocal(feats, dt, device=device)
-        self.CrossScanSSM_0 = CrossScanSSM(feats, d_state, d_conv, expand, dt, device=device)
+        self.CrossScanSSM_0 = CrossScanSSM(feats, d_state, d_conv, expand, dt, device=device,
+                                           scan_impl=scan_impl)
         self.Conv_0 = _pw(2 * feats, feats, dt, device=device)
         self.ECA_0 = ECA(feats, dt, device=device)
         self.res_scale = nn.Parameter(torch.empty(1, device=device))
@@ -405,7 +409,8 @@ DEFAULT_PHASES = ((4, 0.25), (5, 0.35), (3, None))
 @register_model("LFMambaX", loss=composite_v8_builder, whole_scene_ok=True)
 class LFMambaX(nn.Module):
     """The flagship. Config overrides (``cfg.model_kwargs``): channels,
-    d_state, d_conv, expand, use_macpi, phases."""
+    d_state, d_conv, expand, use_macpi, phases, scan_impl ('pallas', 'gated'
+    or 'fused'; the parameter tree does not depend on it)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
@@ -413,11 +418,7 @@ class LFMambaX(nn.Module):
         d_state = cfg.mk("d_state", 16)
         d_conv = cfg.mk("d_conv", 4)
         expand = cfg.mk("expand", 1.25)
-        if cfg.mk("scan_impl", "pallas") != "pallas":
-            raise NotImplementedError(
-                "only scan_impl='pallas' (the K1 split) is ported; the 'gated' and "
-                "'fused' scans are ROADMAP.md queue 2, K9b/K9c"
-            )
+        scan_impl = cfg.mk("scan_impl", "pallas")
         dt = getattr(torch, cfg.compute_dtype)
         self.cfg, self.dtype = cfg, dt
         self.phases = tuple(tuple(p) for p in cfg.mk("phases", DEFAULT_PHASES))
@@ -432,7 +433,8 @@ class LFMambaX(nn.Module):
         self.IFE_0 = IFE(c, dt, device=device)
         for bi in range(nb):
             setattr(self, f"block_{bi}",
-                    LFVSSMBlock(c, d_state, d_conv, expand, dt, device=device))
+                    LFVSSMBlock(c, d_state, d_conv, expand, dt, device=device,
+                                scan_impl=scan_impl))
         self.attn_scales = {}
         for phase, (_, attn_scale) in enumerate(self.phases):
             if attn_scale is not None:

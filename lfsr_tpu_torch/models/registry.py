@@ -4,7 +4,8 @@ Ported so far: the flagship ``LFMambaX`` (loss ``composite_v8``, whole-scene
 eval by default) and ``EPIT`` (L1, tiled eval), each registered with its
 loss builder (``get_loss``). ``get_model`` builds the
 module without initialising it (parameters are created on the meta device
-and then allocated on ``device``); fill it with ``bridge.init_params`` or
+and then allocated on ``device``, the card unless the caller asks for the
+CPU); fill it with ``bridge.init_params`` or
 ``bridge.state_dict_from_flax`` through ``load_state_dict``.
 """
 
@@ -57,11 +58,16 @@ def whole_scene_default(cfg: Config) -> bool:
     return spec(cfg.model_name).whole_scene_ok
 
 
-def get_model(cfg: Config, device=None) -> torch.nn.Module:
-    """Uninitialised model on ``device`` (default CPU), in eval mode."""
+def get_model(cfg: Config, device="cuda") -> torch.nn.Module:
+    """Uninitialised model on ``device`` (default the card; CPU callers pass
+    ``device="cpu"``), in eval mode. Raises when the card is asked for and
+    there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("get_model: no CUDA device; pass device='cpu' to build on the CPU")
     with torch.device("meta"):
         model = spec(cfg.model_name).cls(cfg)
-    return model.to_empty(device=device or "cpu").eval()
+    return model.to_empty(device=device).eval()
 
 
 def get_loss(cfg: Config) -> Callable:

@@ -1,13 +1,19 @@
-"""Mamba block (port of lfsr_tpu/models/ssm.py), following the TPU split:
+"""Mamba block (port of lfsr_tpu/models/ssm.py), following the TPU branches:
 
   in_proj (D -> 2*Di) -> [x | z]
-  x: causal depthwise conv1d (width d_conv) + SiLU, as shifted multiply-adds
-     x_proj (Di -> R + 2N) -> dbc
-  K1 (ops/scan.selective_scan_proj): dt projection + softplus + scan + D skip
-  y = scan * silu(z) in float32 -> out_proj (Di -> D)
+  'pallas' (default): causal depthwise conv1d + SiLU as shifted multiply-adds,
+     x_proj (Di -> R + 2N) -> dbc, K1 (dt projection + softplus + scan +
+     D skip), y = scan * silu(z) in float32 -> out_proj (Di -> D)
+  'gated': the same conv and x_proj, dt_raw = dbc[..., :R] @ Wdt + bdt in the
+     compute dtype, then K9b (scan + D skip + silu(z) gate + out_proj), whose
+     output is the block's
+  'fused': K9c (conv + SiLU + x_proj + dt projection + scan + D skip + gate,
+     float32 inside) -> out_proj
 
-On CPU tensors K1 runs its plain twin; the JAX oracle for this module is
-``pallas_scan.mamba_inner_ref`` (the same math in float32).
+in the dtypes and roundings of ssm.py:99-153. The TPU's other opt-in,
+``'assoc'`` (the pure-JAX reference end to end), is not ported. On CPU
+tensors the kernels run their plain twins; JAX's CPU oracle for every
+branch is ``pallas_scan.mamba_inner_ref`` (the same math in float32).
 """
 
 from __future__ import annotations
@@ -18,33 +24,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lfsr_tpu_torch.ops.scan import selective_scan_proj
+from lfsr_tpu_torch.ops.scan import (
+    conv_silu, mamba_inner_fused, scan_gated_fused, selective_scan_proj,
+)
 
-
-def conv_silu(xs: torch.Tensor, w_conv: torch.Tensor, b_conv: torch.Tensor, dt) -> torch.Tensor:
-    """Causal depthwise conv1d + SiLU over L. xs [B, L, Di];
-    w_conv [Di, 1, K] (torch Conv1d layout); the K taps are accumulated in
-    order in ``dt``, then the bias, as the JAX ``_conv_silu``."""
-    K = w_conv.shape[-1]
-    L = xs.shape[1]
-    xp = F.pad(xs.to(dt), (0, 0, K - 1, 0))
-    w = w_conv[:, 0, :].t().to(dt)  # [K, Di]
-    acc = xp[:, 0:L] * w[0]
-    for k in range(1, K):
-        acc = acc + xp[:, k : k + L] * w[k]
-    return F.silu(b_conv.to(dt) + acc)
+SCAN_IMPLS = ("pallas", "gated", "fused")
 
 
 class Mamba(nn.Module):
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4,
-                 expand: float = 2.0, dt_rank: int | None = None,
+                 expand: float = 2.0, dt_rank: int | None = None, scan_impl: str = "pallas",
                  dtype=torch.float32, device=None):
         super().__init__()
+        if scan_impl not in SCAN_IMPLS:
+            raise NotImplementedError(
+                f"scan_impl={scan_impl!r} is not ported (ported: {SCAN_IMPLS}); "
+                f"see ROADMAP.md section 1")
         D = d_model
         Di = int(expand * D)
         N = d_state
         R = dt_rank or math.ceil(D / 16)
-        self.dtype = dtype
+        self.dtype, self.scan_impl, self.R, self.N = dtype, scan_impl, R, N
         self.in_proj = nn.Linear(D, 2 * Di, bias=False, device=device)
         self.conv1d = nn.Conv1d(Di, Di, d_conv, groups=Di, bias=True, device=device)
         self.x_proj = nn.Linear(Di, R + 2 * N, bias=False, device=device)
@@ -55,13 +55,24 @@ class Mamba(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, L, D] -> [B, L, D] in the compute dtype."""
-        dt = self.dtype
+        dt, R, N = self.dtype, self.R, self.N
         xz = x.to(dt) @ self.in_proj.weight.t().to(dt)
         xs, z = xz.chunk(2, dim=-1)
-        xc = conv_silu(xs, self.conv1d.weight, self.conv1d.bias, dt)
-        dbc = xc @ self.x_proj.weight.t().to(dt)
+        wconv = self.conv1d.weight[:, 0, :].t()  # [K, Di]
+        w_dt = self.dt_proj.weight.t()  # [R, Di]
+        w_out = self.out_proj.weight.t()  # [Di, D]
         A = -torch.exp(self.A_log)
-        y = selective_scan_proj(xc, dbc, self.dt_proj.weight.t().contiguous(),
-                                self.dt_proj.bias, A, self.D)
+        if self.scan_impl == "fused":
+            y = mamba_inner_fused(xs, z, wconv.contiguous(), self.conv1d.bias,
+                                  self.x_proj.weight.t().contiguous(), w_dt.contiguous(),
+                                  self.dt_proj.bias, A, self.D)
+            return y.to(dt) @ w_out.to(dt)
+        xc = conv_silu(xs, wconv, self.conv1d.bias, dt)
+        dbc = xc @ self.x_proj.weight.t().to(dt)
+        if self.scan_impl == "gated":
+            dt_raw = dbc[..., :R] @ w_dt.to(dt) + self.dt_proj.bias.to(dt)
+            return scan_gated_fused(xc, dt_raw, A, dbc[..., R : R + N], dbc[..., R + N :], z,
+                                    self.D, w_out.to(dt).contiguous(), True)
+        y = selective_scan_proj(xc, dbc, w_dt.contiguous(), self.dt_proj.bias, A, self.D)
         y = y.float() * F.silu(z.float())
-        return y.to(dt) @ self.out_proj.weight.t().to(dt)
+        return y.to(dt) @ w_out.to(dt)

@@ -2,7 +2,7 @@
 
 Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
 plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
-scan's autograd Function (``scan.ScanProj``) and K4-K8 inside
+scan's autograd Function (``scan.ScanProj``) and K4-K8, K9b and K9c inside
 ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace.
 """
@@ -13,7 +13,8 @@ from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
-    selective_scan_proj, selective_scan_proj_bwd, selective_scan_proj_states,
+    mamba_inner_fused, scan_gated_fused, selective_scan_proj, selective_scan_proj_bwd,
+    selective_scan_proj_states,
 )
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
@@ -49,6 +50,14 @@ KERNELS = {
     "K8 masked_mha_fused": (
         masked_mha_fused, "lfsr_tpu_torch/csrc/masked_attention.cu",
         "lfsr_tpu/ops/pallas_masked_attention.py:86",
+    ),
+    "K9b scan_gated_fused": (
+        scan_gated_fused, "lfsr_tpu_torch/csrc/mamba_inner.cu",
+        "lfsr_tpu/ops/pallas_scan.py:444",
+    ),
+    "K9c mamba_inner_fused": (
+        mamba_inner_fused, "lfsr_tpu_torch/csrc/mamba_inner.cu",
+        "lfsr_tpu/ops/pallas_scan.py:747",
     ),
 }
 

@@ -36,6 +36,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.c_longlong  # a row stride or a row count
 # C signatures of the entry points (each returns a cudaError_t as int)
 _SIGNATURES = {
     # u, dbc, wdt, bdt, A, D, y, B, L, Di, R, N, dtype, stream
@@ -45,6 +46,13 @@ _SIGNATURES = {
     # u, dbc, dy, wdt, bdt, A, states, du, ddt, dB, dC, dA, part_b, part_c,
     # B, L, Di, R, N, spacing, dtype, stream
     "lfsr_scan_proj_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    # u, dbc, delta, B, sB, C, sC, z, sz, y, wdt, bdt, A, D,
+    # B, L, Di, R, N, mode, u dtype, gate dtype, stream
+    "lfsr_scan_gate": [_P] * 3 + [_P, _S] * 3 + [_P] * 5 + [_I] * 8 + [_P],
+    # x, w, out, rows, K, M, dtype, stream
+    "lfsr_rows_matmul": [_P] * 3 + [_S] + [_I] * 3 + [_P],
+    # xs, sxs, wconv, bconv, wx, xc, dbc, B, L, Di, KC, J, dtype, stream
+    "lfsr_mamba_front": [_P, _S] + [_P] * 5 + [_I] * 6 + [_P],
     # x, gamma, beta, out, B, H, W, C, eps, dtype, stream
     "lfsr_cross_scan_gather": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     # seq, x, w, scale, out, B, H, W, C, dtype, stream
@@ -193,16 +201,36 @@ def twin_error(got, want) -> tuple[float, float]:
     return err, max(1.0, *(b.float().abs().max().item() for b in want))
 
 
-def check(t: torch.Tensor, name: str, shape=None, dtype=None, device=None):
-    """Validate a kernel operand: CUDA, contiguous, dtype, shape."""
+def _check_meta(t: torch.Tensor, name: str, shape, dtype, device):
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check(t: torch.Tensor, name: str, shape=None, dtype=None, device=None):
+    """Validate a kernel operand: CUDA, dtype, shape, contiguous."""
+    _check_meta(t, name, shape, dtype, device)
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def row_stride(t: torch.Tensor, name: str, shape, dtype=None, device=None) -> int:
+    """Validate a [B, L, X] kernel operand whose rows may be spaced (a slice
+    of a wider tensor's last axis, as B and C of dbc or z of in_proj's
+    output): unit stride along X, batch stride L rows. Returns the row
+    stride in elements."""
+    _check_meta(t, name, shape, dtype, device)
+    B, L, X = shape
+    s0, s1, s2 = t.stride()
+    if L == 1:
+        s1 = s0 if B > 1 else X
+    if (X > 1 and s2 != 1) or (B > 1 and s0 != L * s1) or s1 < X:
+        raise ValueError(f"{name}: rows must be unit-stride and evenly spaced, "
+                         f"got strides {t.stride()}")
+    return s1
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

@@ -1,4 +1,5 @@
-"""K1 / K2 / K3 — the Mamba selective scan with the dt projection folded in.
+"""K1 / K2 / K3 — the Mamba selective scan with the dt projection folded in;
+K9b / K9c — the scan with the Mamba epilogue, and the whole inner pipeline.
 
 Port of lfsr_tpu/ops/pallas_scan.py::selective_scan_proj and its custom_vjp
 (Pallas kernels ``_scan_proj_kernel`` K1, ``_scan_proj_states_kernel`` K2,
@@ -15,26 +16,50 @@ which also saves the state at every ``STATE_SPACING``-th step, and backward
 K3, the reverse adjoint scan seeded from those states, followed by the
 dt-projection chain in PyTorch (``_sp_bwd``, pallas_scan.py:340-377).
 
-Each kernel wrapper launches its kernel (csrc/scan.cu) on a CUDA tensor and
-runs its plain twin on a CPU tensor. The kernels take any L: the TPU's
-pad-to-a-multiple-of-128 (ssm.py:109-113) is a Pallas tiling constraint
-with no counterpart here.
+The flagship's opt-in ``scan_impl``s (lfsr_tpu/models/ssm.py:99-153) have
+their own kernels: :func:`scan_gated_fused` (K9b, ``'gated'``:
+``_scan_gated_kernel``) and :func:`mamba_inner_fused` (K9c, ``'fused'``:
+``_mamba_inner_kernel``). Their gradient is their plain twin's
+(``_cuda.PlainVJP``), as the JAX custom_vjps differentiate the references.
+
+Each kernel wrapper launches its kernel (csrc/scan.cu, csrc/mamba_inner.cu)
+on a CUDA tensor and runs its plain twin on a CPU tensor. The kernels take
+any L: the TPU's pad-to-a-multiple-of-128 (ssm.py:109-113) and the
+``L % 128 == 0`` gate of ``'fused'`` (ssm.py:144) are Pallas tiling
+constraints with no counterpart here (off that gate JAX runs
+``mamba_inner_ref``, the same function: tests/test_pallas_scan.py:153-178).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from lfsr_tpu_torch.ops import _cuda
 from lfsr_tpu_torch.ops.selective_scan import readout, scan_states, selective_scan
 
 # steps between saved states (K2) == the adjoint kernel's chunk (K3)
 STATE_SPACING = 64
+# where the forward scan takes delta from (ScanParams::mode, csrc/scan.cu)
+_FROM_DBC, _GIVEN_RAW, _GIVEN = 0, 1, 2
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """logaddexp(x, 0): the form jax.nn.softplus (and the kernel) use."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def conv_silu(xs: torch.Tensor, wconv: torch.Tensor, bconv: torch.Tensor, dt) -> torch.Tensor:
+    """Causal depthwise conv1d + SiLU over L. xs [B, L, Di]; wconv [K, Di];
+    the K taps are accumulated in order in ``dt``, then the bias, as the JAX
+    ``Mamba._conv_silu``."""
+    K, L = wconv.shape[0], xs.shape[1]
+    xp = F.pad(xs.to(dt), (0, 0, K - 1, 0))
+    w = wconv.to(dt)
+    acc = xp[:, 0:L] * w[0]
+    for k in range(1, K):
+        acc = acc + xp[:, k : k + L] * w[k]
+    return F.silu(bconv.to(dt) + acc)
 
 
 def _split_dbc(dbc, Wdt, bdt, N):
@@ -223,3 +248,129 @@ def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     if _cuda.wants_grad(u, dbc, Wdt, bdt, A, D_skip):
         return ScanProj.apply(u, dbc, Wdt, bdt, A, D_skip)
     return _scan_proj(u, dbc, Wdt, bdt, A, D_skip)
+
+
+# --------------------------------------------------------------------------
+# K9b: the scan with the Mamba epilogue (scan_impl='gated')
+# --------------------------------------------------------------------------
+
+def scan_gated_plain(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus=False):
+    """Plain twin of K9b (port of pallas_scan.py::scan_gated_ref):
+    ((scan(u, delta, A, Bc, Cc) + u D_skip) * silu(z)) @ Wout. u, delta, z
+    [B, L, Di]; Bc, Cc [B, L, N]; Wout [Di, Dout]; with ``pre_softplus``
+    delta is softplus'd first. The gated y is rounded to Wout.dtype before
+    the product; returns u.dtype."""
+    f32 = torch.float32
+    d = softplus(delta.to(f32)) if pre_softplus else delta.to(f32)
+    y = selective_scan(u, d, A, Bc, Cc, D_skip).to(f32) * F.silu(z.to(f32))
+    return (y.to(Wout.dtype) @ Wout).to(u.dtype)
+
+
+def _scan_gated(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus):
+    """K9b: kernel on CUDA tensors, plain twin on CPU tensors. The kernel
+    takes every operand but A and D_skip in one dtype (the model's compute
+    dtype; the twin takes any mix); Bc, Cc and z may be slices of a wider
+    last axis (of dbc, of in_proj's output)."""
+    if _cuda.use_plain(u):
+        return scan_gated_plain(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus)
+    B, L, Di = u.shape
+    N, Dout = A.shape[1], Wout.shape[1]
+    dev, f32 = u.device, torch.float32
+    code = _cuda.dtype_code(u, "u")
+    _cuda.check(u, "u", (B, L, Di), u.dtype, dev)
+    _cuda.check(delta, "delta", (B, L, Di), u.dtype, dev)
+    sb = _cuda.row_stride(Bc, "Bc", (B, L, N), u.dtype, dev)
+    sc = _cuda.row_stride(Cc, "Cc", (B, L, N), u.dtype, dev)
+    sz = _cuda.row_stride(z, "z", (B, L, Di), u.dtype, dev)
+    _cuda.check(A, "A", (Di, N), f32, dev)
+    _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
+    _cuda.check(Wout, "Wout", (Di, Dout), u.dtype, dev)
+    if N not in (4, 8, 16, 32):
+        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32), got N={N}")
+    stream = _cuda.stream_of(u)
+    gated = torch.empty_like(u)
+    _cuda.launch(
+        "lfsr_scan_gate", u.data_ptr(), None, delta.data_ptr(), Bc.data_ptr(), sb,
+        Cc.data_ptr(), sc, z.data_ptr(), sz, gated.data_ptr(), None, None, A.data_ptr(),
+        D_skip.data_ptr(), B, L, Di, 0, N, _GIVEN_RAW if pre_softplus else _GIVEN, code, code,
+        stream,
+    )
+    out = torch.empty((B, L, Dout), dtype=u.dtype, device=dev)
+    _cuda.launch("lfsr_rows_matmul", gated.data_ptr(), Wout.data_ptr(), out.data_ptr(), B * L,
+                 Di, Dout, code, stream)
+    scan_gated_fused.launches += 1
+    return out
+
+
+@_cuda.counted
+def scan_gated_fused(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus=False):
+    """K9b, the model's entry under ``scan_impl='gated'``: the kernel (its
+    twin on the CPU); with a gradient wanted, through ``_cuda.PlainVJP`` (the
+    twin's gradient, as ``_sg_bwd`` differentiates ``scan_gated_ref``)."""
+    args = (u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus)
+    if _cuda.wants_grad(*args[:-1]):
+        return _cuda.PlainVJP.apply(_scan_gated, scan_gated_plain, *args)
+    return _scan_gated(*args)
+
+
+# --------------------------------------------------------------------------
+# K9c: the fused Mamba inner pipeline (scan_impl='fused')
+# --------------------------------------------------------------------------
+
+def mamba_inner_plain(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
+    """Plain twin of K9c (port of pallas_scan.py::mamba_inner_ref), float32
+    throughout: xc = silu(causal depthwise conv1d(xs) + bconv); dbc = xc @ Wx;
+    delta = softplus(dbc[..., :R] @ Wdt + bdt); y = (scan(xc, delta, A, B, C)
+    + xc D_skip) * silu(z). xs, z [B, L, Di]; wconv [K, Di]; Wx [Di, R+2N];
+    Wdt [R, Di]; A [Di, N] (negative). Returns xs.dtype."""
+    f32 = torch.float32
+    xc = conv_silu(xs, wconv, bconv, f32)
+    delta, Bc, Cc = _split_dbc(xc @ Wx.to(f32), Wdt, bdt, A.shape[1])
+    y = selective_scan(xc, delta, A, Bc, Cc, D_skip)
+    return (y * F.silu(z.to(f32))).to(xs.dtype)
+
+
+def _mamba_inner(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
+    """K9c: kernel on CUDA tensors, plain twin on CPU tensors. The front
+    (conv + SiLU + x_proj, float32 xc and dbc) and then the scan from dbc
+    with the gate; xs and z may be the halves of in_proj's output."""
+    if _cuda.use_plain(xs):
+        return mamba_inner_plain(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip)
+    B, L, Di = xs.shape
+    KC, R, N = wconv.shape[0], Wdt.shape[0], A.shape[1]
+    J = R + 2 * N
+    dev, f32 = xs.device, torch.float32
+    code = _cuda.dtype_code(xs, "xs")
+    sx = _cuda.row_stride(xs, "xs", (B, L, Di), xs.dtype, dev)
+    sz = _cuda.row_stride(z, "z", (B, L, Di), xs.dtype, dev)
+    for t, name, shape in ((wconv, "wconv", (KC, Di)), (bconv, "bconv", (Di,)),
+                           (Wx, "Wx", (Di, J)), (Wdt, "Wdt", (R, Di)), (bdt, "bdt", (Di,)),
+                           (A, "A", (Di, N)), (D_skip, "D_skip", (Di,))):
+        _cuda.check(t, name, shape, f32, dev)
+    if N not in (4, 8, 16, 32) or not 1 <= R <= 8:
+        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32) and dt_rank <= 8, "
+                         f"got N={N}, R={R}")
+    stream = _cuda.stream_of(xs)
+    xc = torch.empty((B, L, Di), dtype=f32, device=dev)
+    dbc = torch.empty((B, L, J), dtype=f32, device=dev)
+    _cuda.launch("lfsr_mamba_front", xs.data_ptr(), sx, wconv.data_ptr(), bconv.data_ptr(),
+                 Wx.data_ptr(), xc.data_ptr(), dbc.data_ptr(), B, L, Di, KC, J, code, stream)
+    y = torch.empty((B, L, Di), dtype=xs.dtype, device=dev)
+    _cuda.launch(
+        "lfsr_scan_gate", xc.data_ptr(), dbc.data_ptr(), None, None, 0, None, 0,
+        z.data_ptr(), sz, y.data_ptr(), Wdt.data_ptr(), bdt.data_ptr(), A.data_ptr(),
+        D_skip.data_ptr(), B, L, Di, R, N, _FROM_DBC, _cuda.DTYPE_CODES[f32], code, stream,
+    )
+    mamba_inner_fused.launches += 1
+    return y
+
+
+@_cuda.counted
+def mamba_inner_fused(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
+    """K9c, the model's entry under ``scan_impl='fused'``: the kernels (the
+    twin on the CPU); with a gradient wanted, through ``_cuda.PlainVJP`` (the
+    twin's gradient, as ``_mi_bwd`` differentiates ``mamba_inner_ref``)."""
+    args = (xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip)
+    if _cuda.wants_grad(*args):
+        return _cuda.PlainVJP.apply(_mamba_inner, mamba_inner_plain, *args)
+    return _mamba_inner(*args)

@@ -72,9 +72,10 @@ class Draws:
 class Trainer:
     """``Trainer(cfg, steps_per_epoch, state_dict, device)``: the model in
     train mode with the given parameters, its loss, and the optimizer
-    state. ``trainer.model.eval()`` turns dropout off (parity tests)."""
+    state, on the card unless ``device="cpu"``. ``trainer.model.eval()``
+    turns dropout off (parity tests)."""
 
-    def __init__(self, cfg: Config, steps_per_epoch: int, state_dict: dict, device="cpu"):
+    def __init__(self, cfg: Config, steps_per_epoch: int, state_dict: dict, device="cuda"):
         self.cfg, self.steps_per_epoch, self.device = cfg, steps_per_epoch, torch.device(device)
         self.model = get_model(cfg, device=self.device)
         self.model.load_state_dict(state_dict)

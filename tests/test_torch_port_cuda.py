@@ -5,10 +5,13 @@ twin on the same inputs: float32 with TF32 off to 1e-4 of the output scale
 (sums in another order, ``expf``/``rsqrtf`` rounding), bfloat16 to 3e-2
 (a few bf16 roundings at other places; float32 outputs from bf16 inputs,
 K2's states and K3's gradients, to 1e-4), each output against its own
-scale. Also: launch counters, K2's y equal to K1's bit for bit, the
-gradients of the six autograd Functions (the scan's K2 + K3, and K4-K8)
-on the kernels vs on the twins, a block at K7's gate on the kernels vs on
-the plain twins, the small flagship and a one-block EPIT on CUDA vs on the
+scale. K9b and K9c read B and C, z and xs at the row strides the model
+gives them (slices of dbc and of in_proj's output), also at an L that is
+not a multiple of 64. Also: launch counters, K2's y equal to K1's bit for
+bit, the gradients of the six autograd Functions (the scan's K2 + K3, and
+K4-K8) on the kernels vs on the twins, a block at K7's gate and a block
+under each of ``scan_impl='gated'``/``'fused'`` on the kernels vs on the
+plain twins, the small flagship and a one-block EPIT on CUDA vs on the
 CPU.
 
 This file imports no jax, so it runs on the machine with the card:
@@ -58,7 +61,7 @@ def _cases(g, dtype, B, H, W, C, N):
                  _rn(g, R, Di, s=0.3), _rn(g, Di, s=0.1), A, torch.ones(Di, device="cuda"))
     with torch.no_grad():
         states = scan.selective_scan_proj_states(*scan_args)[1]
-    return {
+    cases = {
         "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain, scan_args),
         "K2": (scan.selective_scan_proj_states, scan.selective_scan_proj_states_plain, scan_args),
         "K3": (scan.selective_scan_proj_bwd, scan.selective_scan_proj_bwd_plain,
@@ -77,9 +80,24 @@ def _cases(g, dtype, B, H, W, C, N):
                 _rn(g, c4, C, s=C**-0.5, dtype=dtype), _rn(g, C - c4, C, s=C**-0.5, dtype=dtype),
                 _rn(g, 3, 3, C - c4, s=0.3, dtype=dtype))),
     }
+    # K9b/K9c operands as the model gives them: B and C slices of dbc, xs and
+    # z the halves of in_proj's output
+    dbc = _rn(g, B, L, R + 2 * N, s=0.5, dtype=dtype)
+    xz = _rn(g, B, L, 2 * Di, dtype=dtype)
+    return {
+        **cases,
+        "K9b": (scan.scan_gated_fused, scan.scan_gated_plain,
+                (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, Di, s=0.5, dtype=dtype), A,
+                 dbc[..., R : R + N], dbc[..., R + N :], xz[..., Di:],
+                 torch.ones(Di, device="cuda"), _rn(g, Di, C, s=Di**-0.5, dtype=dtype), True)),
+        "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain,
+                (xz[..., :Di], xz[..., Di:], _rn(g, 4, Di, s=0.3), _rn(g, Di, s=0.1),
+                 _rn(g, Di, R + 2 * N, s=Di**-0.5), _rn(g, R, Di, s=0.3), _rn(g, Di, s=0.1), A,
+                 torch.ones(Di, device="cuda"))),
+    }
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9b", "K9c"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 4), (2, 160, 160, 64, 16),
                                    (2, 40, 72, 64, 16)],
@@ -95,6 +113,36 @@ def test_kernel_matches_plain_twin(cuda, name, dtype, shape):
     for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
         err, scale = _cuda.twin_error(a, b)
         assert err <= TOL[a.dtype] * scale, err
+
+
+@pytest.mark.parametrize("name", ["K9b", "K9c"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_at_a_ragged_length_matches_plain_twin(cuda, name, dtype):
+    """L = 25 x 39 = 975, a multiple of neither 64 nor 128 (the TPU pads;
+    the kernels take any L)."""
+    kern, plain, args = _cases(torch.Generator().manual_seed(7), dtype, 2, 25, 39, 64, 16)[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    err, scale = _cuda.twin_error(got, plain(*args))
+    assert got.dtype == dtype and err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("impl", ["gated", "fused"])
+def test_block_under_each_scan_impl_matches_its_plain_twins(cuda, impl):
+    cfg = Config(compute_dtype="bfloat16", model_kwargs={"scan_impl": impl})
+    model = get_model(cfg, device=cuda)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    x = torch.randn(2, 40, 72, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    kern = {"gated": scan.scan_gated_fused, "fused": scan.mamba_inner_fused}[impl]
+    before = (kern.launches, scan.selective_scan_proj.launches)
+    with torch.inference_mode():
+        got = model.block_0(x)
+        torch.cuda.synchronize()
+        with _cuda.force_plain():
+            want = model.block_0(x)
+    assert (kern.launches, scan.selective_scan_proj.launches) == (before[0] + 1, before[1])
+    err, scale = _cuda.twin_error(got, want)
+    assert err <= TOL[torch.bfloat16] * scale, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -60,7 +60,7 @@ def _both(cfg, x, perturb=True):
     params = (_perturbed_params(cfg, x) if perturb
               else jax.jit(jget_model(cfg).init)(jax.random.key(0), jnp.asarray(x)))
     want = np.asarray(jax.jit(jget_model(cfg).apply)(params, jnp.asarray(x)))
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
     with torch.inference_mode():
         got = model(torch.from_numpy(x)).float().numpy()
@@ -156,7 +156,7 @@ def test_tiled_evaluate_sets_matches_jax():
                                log=lambda m: None)
     _, _, want_views = jeval.evaluate_scene(jmodel.apply, params, JScene(**fields), cfg)
 
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
     got = teval.evaluate_sets(model, {"Synthetic": [TestScene(**fields)]}, cfg,
                               log=lambda m: None, keep_views=True)
@@ -170,7 +170,7 @@ def test_tiled_evaluate_sets_matches_jax():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_keeps_the_compute_dtype(dtype):
     cfg = _cfg(dtype, model_kwargs={"n_blocks": 1, "channels": 16})
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
     seen = []
     hook = model._AltFilter_0._EPITransformer_0.register_forward_hook(

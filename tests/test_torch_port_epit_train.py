@@ -59,7 +59,7 @@ def test_two_steps_match_jax():
                                             jnp.asarray(batches[0][0][..., None]))["params"]
     tx, jstep = _jax_step()
     jstate = tx.init(jparams)
-    trainer = Trainer(CFG, SPE, state_dict_from_flax({"params": jparams}, CFG))
+    trainer = Trainer(CFG, SPE, state_dict_from_flax({"params": jparams}, CFG), device="cpu")
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     for i, (lr, hr) in enumerate(batches):
         jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(lr[..., None]),

@@ -53,7 +53,7 @@ def test_tiled_evaluate_sets_matches_jax():
                                log=lambda m: None)
     _, _, want_views = jeval.evaluate_scene(jmodel.apply, params, JScene(**fields), cfg)
 
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
     got = teval.evaluate_sets(model, {"Synthetic": [TestScene(**fields)]}, cfg,
                               log=lambda m: None, keep_views=True)

@@ -53,7 +53,7 @@ def _perturbed_params(cfg, x):
 
 
 def _port(cfg, params):
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
     return model
 

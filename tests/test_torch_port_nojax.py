@@ -6,10 +6,15 @@ A fresh interpreter blocks every ``lfsr_tpu``/``jax``/``jaxlib``/``flax``/
 own name and passes), imports every module of the port (the trainer,
 optimizer, masking, losses and submission tools included), runs a CPU
 forward of the small flagship, a tiled and a whole-scene
-``evaluate_sets``, ``infer_submission`` on tiny scenes and one train step,
+``evaluate_sets`` (the latter also under ``scan_impl='gated'`` and
+``'fused'``), ``infer_submission`` on tiny scenes and one train step,
 then a forward and one train step of a one-block EPIT, and checks that no
 blocked module was loaded. The machine with the card has none of the
-third-party ones, and the port imports nothing of the JAX package.
+third-party ones, and the port imports nothing of the JAX package. Every
+model and trainer is asked for the CPU (``device="cpu"``); the entry points
+default to the card. On the card's machine:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_nojax.py
 """
 
 import os
@@ -53,7 +58,7 @@ from lfsr_tpu_torch.train.evaluate import evaluate_sets
 cfg = Config(compute_dtype="float32", whole_scene_for_test=False, patch_size_for_test=8,
              stride_for_test=4,
              model_kwargs={"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))})
-model = get_model(cfg)
+model = get_model(cfg, device="cpu")
 model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
 with torch.inference_mode():
     y = model(torch.rand(2, 40, 40, 1, generator=torch.Generator().manual_seed(1)))
@@ -74,6 +79,12 @@ scenes = [TestScene(f"toy{i}", "Synthetic", rng.random((60, 60), dtype=np.float3
                     np.full((240, 240, 2), 0.5, np.float32)) for i in range(2)]
 res = evaluate_sets(model, {"Synthetic": scenes}, whole, log=lambda m: None)
 assert np.isfinite(res["Synthetic"]["psnr"]), res
+for impl in ("gated", "fused"):  # K9b's and K9c's wrappers, their twins on the CPU
+    icfg = whole.replace(model_kwargs={**whole.model_kwargs, "scan_impl": impl})
+    imodel = get_model(icfg, device="cpu")
+    imodel.load_state_dict(init_params(icfg, torch.Generator().manual_seed(0)))
+    res = evaluate_sets(imodel, {"Synthetic": scenes}, icfg, log=lambda m: None)
+    assert np.isfinite(res["Synthetic"]["psnr"]), (impl, res)
 with tempfile.TemporaryDirectory() as tmp:
     rep = infer_submission(model, {"Synth": scenes}, whole, Path(tmp) / "sub", log=lambda m: None)
     assert len(list((Path(tmp) / "sub" / "Synth").rglob("*.bmp"))) == 2 * 25
@@ -82,7 +93,7 @@ from lfsr_tpu_torch.data.datasets import TrainArrays
 from lfsr_tpu_torch.train.trainer import Trainer
 
 tcfg = cfg.replace(batch_size=2, compute_dtype="float32")
-trainer = Trainer(tcfg, 1, init_params(tcfg, torch.Generator().manual_seed(0)))
+trainer = Trainer(tcfg, 1, init_params(tcfg, torch.Generator().manual_seed(0)), device="cpu")
 data = TrainArrays(rng.random((2, 40, 40), dtype=np.float32),
                    rng.random((2, 160, 160), dtype=np.float32))
 before = trainer.params["HLFR_0.out_scale"].clone()
@@ -92,12 +103,12 @@ assert not torch.equal(before, trainer.params["HLFR_0.out_scale"])
 
 ecfg = Config(model_name="EPIT", compute_dtype="float32", batch_size=2,
               model_kwargs={"n_blocks": 1})  # full width: K8's wrapper, its twin on the CPU
-emodel = get_model(ecfg)
+emodel = get_model(ecfg, device="cpu")
 emodel.load_state_dict(init_params(ecfg, torch.Generator().manual_seed(0)))
 with torch.inference_mode():
     y = emodel(torch.rand(1, 40, 40, 1, generator=torch.Generator().manual_seed(2)))
 assert y.shape == (1, 160, 160, 1) and torch.isfinite(y).all()
-trainer = Trainer(ecfg, 1, init_params(ecfg, torch.Generator().manual_seed(0)))
+trainer = Trainer(ecfg, 1, init_params(ecfg, torch.Generator().manual_seed(0)), device="cpu")
 before = trainer.params["Conv_2.weight"].clone()
 m = trainer.run_epoch(data, 0)
 assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m

@@ -250,7 +250,7 @@ def test_dropout_keeps_nine_tenths_scaled():
 
 def test_block_dropout_runs_only_in_train_mode():
     cfg = Config(compute_dtype="float32", model_kwargs=SMALL)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
     x = torch.randn(1, 16, 16, 16, generator=torch.Generator().manual_seed(1))
     blk = model.block_0

@@ -107,7 +107,7 @@ def run():
     jparams = _perturbed_params(batches[0][0][..., None])
     tx, jstep = _jax_step()
     jstate = tx.init(jparams)
-    trainer = Trainer(CFG, SPE, state_dict_from_flax({"params": jparams}, CFG))
+    trainer = Trainer(CFG, SPE, state_dict_from_flax({"params": jparams}, CFG), device="cpu")
     trainer.model.eval()
     steps = []
     for lr, hr in batches[:3]:

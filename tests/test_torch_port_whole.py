@@ -54,7 +54,7 @@ def whole_pair():
     cfg = Config(compute_dtype="float32", model_kwargs=SMALL, whole_scene_minibatch=2)
     jmodel = jget_model(cfg)
     params = jax.jit(jmodel.init)(jax.random.key(0), jnp.zeros((1, 40, 40, 1)))
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
     want = jeval.evaluate_sets(jmodel.apply, params,
                                {k: [JScene(**f) for f in v] for k, v in SETS.items()}, cfg,

@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                 # the whole check (one card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
-    python3 chip_smoke.py --train-only    # build + kernels + the flagship's training phase
+    python3 chip_smoke.py --train-only    # build + kernels + the training phases (and K9a's op)
     python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
-    python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval
-    python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval
+    python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
+    python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
     python3 chip_smoke.py --profile       # + torch.profiler traces of one dispatch / step each
 
 Phases (any failure exits non-zero):
@@ -24,7 +24,12 @@ Phases (any failure exits non-zero):
    gated-epilogue scan + out-projection of ``scan_impl='gated'``) and K9c
    (the fused Mamba inner pipeline of ``'fused'``) at the tiled scan shape
    [2, 25600, 80], the Synth one [4, 518400, 80] and the Real one
-   [4, 563200, 80]; K8 (EPIT's
+   [4, 563200, 80]; K10 (the HLFR tail: expansion matmul + lrelu + folded
+   out-conv, on the last stage's map at twice the LR side) at the tiled
+   [2, 320, 320, 64], train [8, 320, 320, 64], Synth [4, 1440, 1440, 64]
+   and Real [4, 1280, 1760, 64] shapes; K9a (the op-level scan
+   ``selective_scan_fused``, delta given after or before softplus) at the
+   tiled, train and Synth scan shapes; K8 (EPIT's
    banded-mask attention) at EPIT's tiled eval (q/k/v [320, 160, 128]) and
    batch-8 training ([1280, 160, 128]), with EPIT's own mask, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the library
@@ -36,11 +41,14 @@ Phases (any failure exits non-zero):
    pre-training with 2 masked views in epoch 0, dropout, composite_v8,
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
    untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
-   step (K2/K3/K4/K5/K7 12, K6 2, K1 0), finite loss/PSNR/SSIM, ms/step,
-   steps/s, peak memory. A batch holding a NaN must leave the parameters
-   and the optimizer's inner state as they were. One float32 step's
-   parameter gradients on the kernels against the plain twins (batch 4,
-   the smallest batch at K7's gate).
+   step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0), finite loss/PSNR/SSIM,
+   ms/step, steps/s, peak memory. A batch holding a NaN must leave the
+   parameters and the optimizer's inner state as they were. One float32
+   step's parameter gradients on the kernels against the plain twins
+   (batch 4, the smallest batch at K7's gate). Then the same under
+   ``Config(batch_size=8, model_kwargs={'scan_impl': impl})`` for impl in
+   ('gated', 'fused'): K9b or K9c 12 per step in K2's place, K1/K2/K3 0
+   (the scan's gradient is its twin's, the chunked scan).
 4. Tiled eval: the full-width flagship LFMambaX (64 channels, 12 blocks,
    d_state 16, bf16 activations) from a seeded random init, tiled
    ``evaluate_sets`` of one synthetic 5x5 scene (128^2 LR, 512^2 HR per
@@ -49,7 +57,7 @@ Phases (any failure exits non-zero):
 5. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
    (432x624 HR), one dispatch each: launch counts per dispatch (K7 on the
-   square Synth mosaic only), finite SR and metrics, ms/scene and peak
+   square Synth mosaic only, K10 once), finite SR and metrics, ms/scene and peak
    memory; one scene per geometry against the plain twins. Then the same
    8 scenes under ``Config(model_kwargs={'scan_impl': impl})`` for impl in
    ('gated', 'fused'), with the same seeded parameters: K9b or K9c 12 per
@@ -63,7 +71,10 @@ Phases (any failure exits non-zero):
    2 patches: K8 320 launches, nothing else) against the plain twins, and
    its batch-8 train step (L1, augmentation, masking, AdamW; K8 10 per
    step), the NaN-skip and one float32 step's gradients kernels vs twins.
-8. Prints the card, the kernels' JSON line, then the final result line.
+8. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
+   80], float32, forward and one backward of sum(y^2) on the kernel and on
+   the plain twin: y and every gradient against the twin's.
+9. Prints the card, the kernels' JSON line, then the final result line.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -109,23 +120,29 @@ EVAL_SCENES, SUBMISSION_SCENES = 4, 16
 GRAD_BOUND = 1e-4
 GRAD_BATCH = 4
 
-# launches per flagship forward (12 blocks, window attention after 2 phases)
+# launches per flagship forward (12 blocks, window attention after 2 phases,
+# the HLFR tail once)
 PER_FORWARD = {"K1 selective_scan_proj": 12, "K4 cross_scan_gather": 12,
-               "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12}
+               "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
+               "K10 hlfr_tail": 1}
 # launches per train step: K2 in place of K1 forward, K3 in backward (K4-K7
-# have no backward kernel: their gradient is the plain twin's, as on the TPU)
+# and K10 have no backward kernel: their gradient is the plain twin's, as on
+# the TPU)
 PER_STEP = {"K1 selective_scan_proj": 0, "K2 selective_scan_proj_states": 12,
             "K3 selective_scan_proj_bwd": 12, "K4 cross_scan_gather": 12,
-            "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12}
+            "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
+            "K10 hlfr_tail": 1}
 TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
 EPIT_PER_FORWARD = {"K8 masked_mha_fused": 10}
-# the flagship's opt-in scans: each takes K1's place, 12 per forward
+# the flagship's opt-in scans: each takes K1's place, 12 per forward (in a
+# train step too, where K2 and K3 then do not run: the gradient is the twin's)
 SCAN_IMPL_KERNELS = {"gated": "K9b scan_gated_fused", "fused": "K9c mamba_inner_fused"}
-# at a whole-scene L the scans' twins run one batch row at a time: the
-# arguments of each kernel that are sliced along the batch
-BY_ROWS = {"K1": (0, 1), "K9b": (0, 1, 3, 4, 5), "K9c": (0, 1)}
+# the scans at a whole-scene L: a kernel call takes ~0.1 s and its twin's
+# ~0.5 s (the chunked scan's ~2,000 chunks), so each twin is timed by the one
+# call that it is compared with, and the kernel over 5 calls
+WHOLE, SCANS = ("synth", "real"), ("K1", "K9a", "K9b", "K9c")
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, matrix
 # products of bf16 operands on the tensor cores, float32 on the CUDA cores
@@ -136,6 +153,14 @@ F32_FLOPS = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+def lap(what: str) -> None:
+    """Log the seconds since the script started, after a phase."""
+    log(f"[time] {what} done at {time.perf_counter() - START:.1f} s")
 
 
 def card_info() -> str:
@@ -168,11 +193,16 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
     xs and z halves of in_proj's output) at tiled eval (minibatch 2); all
     five eval kernels and K9b/K9c at a Synth whole-scene dispatch;
     K1/K4/K5/K6 and K9b/K9c at a Real one (K7 is not taken on the
-    non-square Real mosaic); K8 at EPIT's tiled eval (2 patches x
-    5 x 32 sequences) and batch-8 train step (8 x 5 x 32), L = 5 x 32 tokens
-    of 128 channels, 8 heads, EPIT's own band mask. ``only``: the kernels
-    to yield (default all)."""
+    non-square Real mosaic); K10 (the HLFR tail, on the last stage's map at
+    twice the LR mosaic's side: Cz 256, rr 4, kf folded from a seeded 3x3
+    kernel) at all four; K9a (the op-level scan, B and C slices of a dbc,
+    D given) at train, tiled and Synth, with delta given after softplus
+    ("where" as is) and before it ("where/raw"); K8 at EPIT's tiled eval
+    (2 patches x 5 x 32 sequences) and batch-8 train step (8 x 5 x 32),
+    L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask.
+    ``only``: the kernels to yield (default all)."""
     from lfsr_tpu_torch.models.epit import HEADS, band_mask
+    from lfsr_tpu_torch.models.lfmambax import fold_out_conv
     from lfsr_tpu_torch.ops import scan
 
     dev = DEVICE
@@ -183,8 +213,15 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
     C, Di, N, R, T, heads, c4 = 64, 80, 16, 4, 64, 4, 16
     A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
 
-    def operands(name, B, H, W):
+    def operands(name, B, H, W, raw=False):
         L = H * W
+        if name == "K9a":  # u, delta, A, B, C, D, chunk, pre_softplus
+            dbc, delta = rn(B, L, R + 2 * N, s=0.5, dt=dtype), rn(B, L, Di, s=0.5)
+            return (rn(B, L, Di, s=0.5, dt=dtype), (delta if raw else scan.softplus(delta)).to(dtype),
+                    A, dbc[..., R : R + N], dbc[..., R + N :], 1 + rn(Di, s=0.1), 256, raw)
+        if name == "K10":  # y, w1, kf, bias on the last HLFR stage's [B, 2H, 2W, C] map
+            return (rn(B, 2 * H, 2 * W, C, dt=dtype), rn(C, 4 * C, s=C**-0.5, dt=dtype),
+                    fold_out_conv(rn(3, 3, C, 1, s=0.1, dt=dtype), 2), rn(1, s=0.1, dt=dtype))
         if name in ("K1", "K2"):
             return (rn(B, L, Di, s=0.5, dt=dtype), rn(B, L, R + 2 * N, s=0.5, dt=dtype),
                     rn(R, Di, s=0.3), rn(Di, s=0.1), A, torch.ones(Di, device=dev))
@@ -220,15 +257,19 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
         # by 8 and rounded up to a multiple of 8 (720x720 Synth, 640x880 Real)
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
-    for where, shape, names in (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7")),
-                                ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K9b", "K9c")),
+    for where, shape, names in (("train", (8, 160, 160),
+                                 ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
+                                ("tiled", (2, 160, 160),
+                                 ("K1", "K4", "K5", "K6", "K9a", "K9b", "K9c", "K10")),
                                 ("synth", mosaic(SYNTH_HR),
-                                 ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c")),
+                                 ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10")),
                                 ("real", mosaic(REAL_HR),
-                                 ("K1", "K4", "K5", "K6", "K9b", "K9c"))):
+                                 ("K1", "K4", "K5", "K6", "K9b", "K9c", "K10"))):
         for name in names:
             if only is None or name in only:
                 yield name, where, operands(name, *shape)
+                if name == "K9a":
+                    yield name, f"{where}/raw", operands(name, *shape, raw=True)
     if only is None or "K8" in only:
         mask = band_mask(5, 32, 10, 11, torch.device(dev))  # EPIT's mask, L = 160
         for where, seqs in (("epit-tiled", 2 * 5 * 32), ("epit-train", 8 * 5 * 32)):
@@ -267,6 +308,15 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
         # silu(z) gate; the out-projection's product (of W_out's dtype)
         N, Dout = args[2].shape[1], args[7].shape[1]
         return nbytes, 2.0 * x.numel() * Dout, float(x.numel() * (6 + 7 * N + 7))
+    if name == "K9a":  # per (b, t, channel): softplus (delta given before it), the
+        # scan as K1's, the D skip; the two roundings are not counted
+        N = args[2].shape[1]
+        return nbytes, 0.0, float(x.numel() * ((6 if args[7] else 0) + 7 * N + 2))
+    if name == "K10":  # per pixel: the products C x Cz and Cz x 9 rr (of y's dtype);
+        # lrelu (a compare and a multiply) per z, the nine adds per output
+        Cz, rr = args[2].shape[2], args[2].shape[3]
+        P = x.numel() // x.shape[-1]
+        return (nbytes, 2.0 * P * Cz * (x.shape[-1] + 9 * rr), float(P * (2 * Cz + 9 * rr)))
     if name == "K9c":  # per (b, t, channel), all float32: conv + bias + SiLU, x_proj's
         # product, the dt projection + softplus, the scan, D skip and the gate
         KC, J, R, N = args[2].shape[0], args[4].shape[1], args[5].shape[0], args[7].shape[1]
@@ -314,8 +364,19 @@ def sdpa_call(q, k, v, mask, heads):
     return run, lambda o: o.transpose(1, 2).reshape(B, L, D)
 
 
+def timed_call(fn):
+    """(fn(), its time in ms): one call between two CUDA events."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def check_kernels(results: dict, only=None) -> None:
-    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs
+    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
 
     pairs = {
@@ -328,38 +389,38 @@ def check_kernels(results: dict, only=None) -> None:
         "K6": (wa.window_mha_fused, wa.window_mha_plain),
         "K7": (block.ln_msl, block.ln_msl_plain),
         "K8": (ma.masked_mha_fused, ma.masked_mha_plain),
+        "K9a": (scan.selective_scan_fused, scan.selective_scan_fused_plain),
         "K9b": (scan.scan_gated_fused, scan.scan_gated_plain),
         "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain),
+        "K10": (head.hlfr_tail, head.hlfr_tail_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
-    # on the flagship's float32 residual stream): K1 and K4-K7 at the Synth
-    # whole-scene dispatch, the flagship's default eval, where all five run;
-    # K2 and K3 at the batch-8 train step; K8 at EPIT's default (tiled) eval
+    # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
+    # Synth whole-scene dispatch, the flagship's default eval, where all of
+    # them run; K2 and K3 at the batch-8 train step; K9a at the train shape
+    # of its op phase, delta after softplus; K8 at EPIT's default (tiled) eval
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
-                "train" if k in ("K2", "K3") else "epit-tiled" if k == "K8" else "synth")
+                "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8" else "synth")
             for k in pairs}
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g, only):
             kern, plain = pairs[name]
-            # the scans at a whole-scene L: ~0.1 s per launch, ~1 s per twin call
-            big = name in BY_ROWS and where != "tiled"
-            if big:
-                plain = by_rows(plain, BY_ROWS[name])
+            big = where in WHOLE and name in SCANS
             got = kern(*args)
             torch.cuda.synchronize()
             if name == "K2":  # the training forward's y is K1's, bit for bit
                 same = torch.equal(got[0], scan.selective_scan_proj(*args))
                 log(f"[kernels] K2 {str(dtype)[6:]:8s} y == K1 y bit for bit: {same}")
                 assert same, f"K2 {dtype}: y differs from K1's"
-            want = plain(*args)
-            torch.cuda.synchronize()
+            want, plain_ms = timed_call(lambda: plain(*args))
             # each output against its own scale (K3's dA sums over L, its du
             # does not); float32 outputs (K2's states, all of K3's) from
-            # bf16 inputs are computed in float32 on both sides
+            # bf16 inputs are computed in float32 on both sides, K10's from
+            # z rounded to bf16 on both sides (the bound of its inputs' dtype)
             outs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
             errs = [_cuda.twin_error(a, b) for a, b in outs]
-            bounds = [(tol if a.dtype == torch.bfloat16 else F32_BOUND) * sc
+            bounds = [(tol if a.dtype == torch.bfloat16 or name == "K10" else F32_BOUND) * sc
                       for (a, _), (_, sc) in zip(outs, errs)]
             bound_ms, bound_by, core_ms = bound(name, args, [a for a, _ in outs])
             library_ms, lib_note = None, ""
@@ -373,7 +434,8 @@ def check_kernels(results: dict, only=None) -> None:
             err = max(e for e, _ in errs)
             ok = all(np.isfinite(e) and e <= b for (e, _), b in zip(errs, bounds))
             ms = time_ms(lambda: kern(*args), *((5, 1) if big else (20, 3)))
-            plain_ms = time_ms(lambda: plain(*args), *((1, 0) if big else (5, 1)))
+            if not big:
+                plain_ms = time_ms(lambda: plain(*args), 5, 1)
             log(f"[kernels] {name} {str(dtype)[6:]:8s} {where:5s} shape {tuple(args[0].shape)} "
                 f"max|d|={', '.join(f'{e:.3e}' for e, _ in errs)} "
                 f"bound={', '.join(f'{b:.3e}' for b in bounds)} {'ok' if ok else 'FAIL'} | "
@@ -479,6 +541,15 @@ def per_forward(impl: str = "pallas") -> dict:
         return PER_FORWARD
     out = {k: n for k, n in PER_FORWARD.items() if k != "K1 selective_scan_proj"}
     return {**out, SCAN_IMPL_KERNELS[impl]: PER_FORWARD["K1 selective_scan_proj"]}
+
+
+def per_step(impl: str = "pallas") -> dict:
+    """Launches per train step under ``scan_impl=impl``: K9b or K9c forward
+    in the place of K2, and no K3 (their gradient is the twin's)."""
+    if impl == "pallas":
+        return PER_STEP
+    out = {k: n for k, n in PER_STEP.items() if k.split()[0] not in ("K1", "K2", "K3")}
+    return {**out, SCAN_IMPL_KERNELS[impl]: PER_STEP["K2 selective_scan_proj_states"]}
 
 
 def eval_launches(forwards: int, k7_forwards: int, impl: str = "pallas") -> dict:
@@ -819,6 +890,50 @@ def run_train(sd, cfg, per_step: dict, profile: bool, what: str) -> dict:
     return counts
 
 
+def run_k9a_op() -> dict:
+    """K9a's path: the op ``selective_scan_fused`` at the train scan shape
+    [8, 25600, 80] (delta before softplus, B and C slices of a dbc, D
+    given), float32, its forward and one backward of sum(y^2) (the gradient
+    of the chunked scan, D inside, as JAX's custom_vjp), on the kernel and
+    on the plain twin (``_cuda.force_plain``): y within F32_BOUND and each
+    gradient within GRAD_BOUND of the twin's. Returns the kernel run's
+    launches."""
+    from lfsr_tpu_torch.ops import _cuda, launch_counts, reset_launch_counts, scan
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    B, L, Di, N, R = 8, 25600, 80, 16, 4
+    rn = lambda *shape, s: torch.randn(*shape, generator=g, device=DEVICE) * s
+    dbc = rn(B, L, R + 2 * N, s=0.5)
+    args = (rn(B, L, Di, s=0.5), rn(B, L, Di, s=0.5),
+            -torch.arange(1, N + 1, dtype=torch.float32, device=DEVICE).repeat(Di, 1),
+            dbc[..., R : R + N], dbc[..., R + N :], 1 + rn(Di, s=0.1))
+    runs = []
+    for plain in (False, True):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        reset_launch_counts()
+        with _cuda.force_plain() if plain else contextlib.nullcontext():
+            y, fwd_ms = timed_call(lambda: scan.selective_scan_fused(*leaves, 256, True))
+            grads, bwd_ms = timed_call(lambda: torch.autograd.grad((y**2).sum(), leaves))
+        runs.append((y.detach(), grads, fwd_ms, bwd_ms, launch_counts()))
+    (y, grads, fwd_ms, bwd_ms, counts), (py, pgrads, pfwd_ms, pbwd_ms, pcounts) = runs
+    check_counts(counts, {"K9a selective_scan_fused": 1}, "K9a op, kernel")
+    assert not any(pcounts.values()), pcounts
+    err, scale = _cuda.twin_error(y, py)
+    assert err <= F32_BOUND * scale, (err, scale)
+    gerrs = [_cuda.twin_error(a, b) for a, b in zip(grads, pgrads)]
+    for (e, sc), name in zip(gerrs, ("u", "delta", "A", "B", "C", "D")):
+        assert np.isfinite(e) and e <= GRAD_BOUND * sc, (name, e, sc)
+    log(f"[K9a op] selective_scan_fused float32 {tuple(args[0].shape)}, pre_softplus, D: "
+        f"y max|d| {err:.3e} (bound {F32_BOUND} x {scale:.3f}); gradients of u, delta, A, B, "
+        f"C, D max|d| / max(1, max|g|) "
+        f"{', '.join(f'{e / sc:.3e}' for e, sc in gerrs)} (bound {GRAD_BOUND}) | kernel forward "
+        f"{fwd_ms:.2f} ms + backward {bwd_ms:.2f} ms; twin {pfwd_ms:.2f} + {pbwd_ms:.2f} ms "
+        f"({CARD})")
+    del runs, grads, pgrads
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_tiled_dispatch(model, cfg) -> None:
     from lfsr_tpu_torch.ops.tiling import lf_divide
 
@@ -867,25 +982,37 @@ def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
     cfg = Config()
     assert whole_scene_default(cfg), "the flagship's default eval is whole-scene"
     model, sd = seeded_model(cfg, 693_998)
-    launches = run_train(sd, Config(batch_size=8), PER_STEP, profile, "train")
+    launches = [run_train(sd, Config(batch_size=8), PER_STEP, profile, "train")]
+    lap("train")
+    for impl in SCAN_IMPL_KERNELS:
+        launches.append(run_train(sd, Config(batch_size=8, model_kwargs={"scan_impl": impl}),
+                                  per_step(impl), False, f"{impl} train"))
+        lap(f"{impl} train")
     if not eval_paths:
-        return launches
+        return add(*launches)
     if profile:
         profile_tiled_dispatch(model, cfg)
     tiled = run_tiled(model, Config(whole_scene_for_test=False), eval_launches(1, 0))
+    lap("tiled")
 
     synth, real = flagship_scenes()
     whole, ref = run_whole(model, synth[:EVAL_SCENES], real[:EVAL_SCENES], profile)
-    impls = [run_scan_impl(impl, sd, synth[:EVAL_SCENES], real[:EVAL_SCENES], ref, profile)
-             for impl in SCAN_IMPL_KERNELS]
+    lap("whole")
+    impls = []
+    for impl in SCAN_IMPL_KERNELS:
+        impls.append(run_scan_impl(impl, sd, synth[:EVAL_SCENES], real[:EVAL_SCENES], ref,
+                                   profile))
+        lap(f"{impl} whole")
     run_submission(model, synth, real)
-    return add(launches, tiled, whole, *impls)
+    lap("submission")
+    return add(*launches, tiled, whole, *impls)
 
 
 def run_scan_impl_alone(impl: str, profile: bool = False) -> dict:
     """``--scan-impl``: the 'pallas' model's whole-scene dispatches (the
     reference, counted and timed but not held against the twins), then
-    ``run_scan_impl``. Returns the launches of the latter."""
+    ``run_scan_impl`` and the impl's train phase. Returns the launches of
+    the latter two."""
     from lfsr_tpu_torch.config import Config
 
     model, sd = seeded_model(Config(), 693_998)
@@ -893,7 +1020,10 @@ def run_scan_impl_alone(impl: str, profile: bool = False) -> dict:
     ref = whole_dispatches(model, Config(), synth, real, "whole")[1]
     del model
     torch.cuda.empty_cache()
-    return run_scan_impl(impl, sd, synth, real, ref, profile)
+    whole = run_scan_impl(impl, sd, synth, real, ref, profile)
+    train = run_train(sd, Config(batch_size=8, model_kwargs={"scan_impl": impl}), per_step(impl),
+                      False, f"{impl} train")
+    return add(whole, train)
 
 
 def run_epit(profile: bool = False, eval_paths: bool = True) -> dict:
@@ -927,14 +1057,15 @@ def main() -> int:
                     help="also trace one train step and one tiled (and for the flagship one "
                          "whole-scene) dispatch of each model with torch.profiler")
     ap.add_argument("--train-only", action="store_true",
-                    help="after the kernel phase run the training phases only (no eval paths)")
+                    help="after the kernel phase run the training phases (every scan_impl's "
+                         "for the flagship) and K9a's op only (no eval paths)")
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--model", choices=("LFMambaX", "EPIT"),
                       help="only this model's kernels and phases (default: both)")
     only.add_argument("--scan-impl", choices=tuple(SCAN_IMPL_KERNELS),
-                      help="only the flagship's kernel of this scan_impl (K9b or K9c) and its "
+                      help="only the flagship's kernel of this scan_impl (K9b or K9c), its "
                            "whole-scene eval phase, beside the 'pallas' dispatches it is held "
-                           "against")
+                           "against, and its train phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -953,12 +1084,13 @@ def main() -> int:
     log(f"[build] nvcc sm_90a -> {_cuda.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9b", "K9c"),
+    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10"),
              "EPIT": ("K8",), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     results: dict = {}
     check_kernels(results, names)
+    lap("kernels")
     if args.kernels_only:
         log(CARD)
         return 0
@@ -969,8 +1101,11 @@ def main() -> int:
         runs.append(run_scan_impl_alone(args.scan_impl, profile=args.profile))
     if args.model in (None, "LFMambaX") and not args.scan_impl:
         runs.append(run_flagship(profile=args.profile, eval_paths=eval_paths))
+        runs.append(run_k9a_op())
+        lap("K9a op")
     if args.model in (None, "EPIT") and not args.scan_impl:
         runs.append(run_epit(profile=args.profile, eval_paths=eval_paths))
+        lap("EPIT")
     launches = add(*runs)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

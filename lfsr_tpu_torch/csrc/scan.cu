@@ -14,13 +14,20 @@
 // is K1's bit for bit: the flag only adds the stores.
 //
 // The scans of K9b (::_scan_gated_kernel) and K9c (::_mamba_inner_kernel)
-// are the same kernel with the gate epilogue (template flag kGate, entry
-// lfsr_scan_gate): y_t[d] = (sum_n C_t[n] h_t[n] + D[d] u_t[d]) silu(z_t[d]),
+// are the same kernel with the gate epilogue (template epilogue kEpiGate,
+// entry lfsr_scan_gate): y_t[d] = (sum_n C_t[n] h_t[n] + D[d] u_t[d]) silu(z_t[d]),
 // stored in z's dtype. K9c takes delta from dbc as K1 does; K9b takes delta
 // as an array, before softplus or after it, and B and C as arrays. B, C and
 // z are read at a row stride, so B and C come straight out of dbc and z out
 // of in_proj's output, without copies. The rest of K9b and K9c
 // (the out-projection, the conv + x_proj front) is in mamba_inner.cu.
+//
+// K9a replaces ::_scan_chunk_kernel and ::_scan_chunk_kernel_flat (one
+// function in two TPU lane layouts, behind selective_scan_fused): the same
+// kernel with delta, B and C given as K9b takes them, and the epilogue
+// kEpiRound (entry lfsr_scan_given): y_t[d] = round(sum_n C_t[n] h_t[n]) in
+// u's dtype, then + D[d] u_t[d] and rounded again, the two roundings of
+// JAX's y.astype(u.dtype) before its D skip.
 //
 // K3 replaces ::_scan_proj_bwd_kernel, the reverse adjoint scan. Given dy,
 // lambda_t = C_t dy_t + exp(delta_{t+1} A) lambda_{t+1} and it returns
@@ -97,6 +104,20 @@ __device__ __forceinline__ float delta_of(const float* row, const float* __restr
 //  kGiven     K9b: delta as given
 enum DeltaMode : int { kFromDbc = 0, kGivenRaw = 1, kGiven = 2 };
 
+// What the forward scan stores for y_t[d], with s = sum_n C_t[n] h_t[n]:
+//  kEpiSkip   K1/K2: s + D u
+//  kEpiGate   K9b/K9c: (s + D u) silu(z)
+//  kEpiRound  K9a: round(round(s) + D u) in TY (D u left out without D)
+// A template parameter: each instance compiles its own epilogue only, and
+// K1's instructions stay as they were.
+enum Epilogue : int { kEpiSkip = 0, kEpiGate = 1, kEpiRound = 2 };
+
+// x rounded to T's precision (identity for float32)
+__device__ __forceinline__ float round_to(float x, float*) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Operands of the forward scan. u, dbc, delta and y are contiguous; B, C
 // and z are read at a row stride (elements between time steps; the batch
 // stride is L rows), so B and C come straight out of dbc and z out of
@@ -107,22 +128,24 @@ struct ScanParams {
   const void* delta;                    // kGiven*: [B, L, Di] (TU)
   const void* bm; long long sbm;        // kGiven*: B [B, L, N] (TU)
   const void* cm; long long scm;        // kGiven*: C [B, L, N] (TU)
-  const void* z; long long sz;          // kGate: the gate's input [B, L, Di] (TY)
+  const void* z; long long sz;          // kEpiGate: the gate's input [B, L, Di] (TY)
   void* y;                              // [B, L, Di] (TY)
   const float* wdt; const float* bdt;   // kFromDbc: [R, Di], [Di]
-  const float* A; const float* dskip;   // [Di, N], [Di]
+  const float* A; const float* dskip;   // [Di, N], [Di] (kEpiRound: may be null)
   float* states;                        // kStates: [B, ceil(L / spacing), N, Di]
   int L, Di, R, spacing, mode;
 };
 
-// The forward scan: K1, K2 (kStates) and the scan of K9b/K9c (kGate, whose
-// epilogue multiplies y + u D by silu(z) before the store). u, dbc, delta, B
-// and C are TU; z and y are TY (K1/K2: TY == TU). One warp walks all L
+// The forward scan: K1, K2 (kStates), the scan of K9b/K9c (kEpiGate, whose
+// epilogue multiplies y + u D by silu(z) before the store) and K9a
+// (kEpiRound). u, dbc, delta, B and C are TU; z and y are TY (K1, K2, K9a:
+// TY == TU). One warp walks all L
 // steps and issues in order, so what bounds it is the latency of each
 // step's dependent chain (shared-memory read, exp, the log2(N) shuffles of
 // the sum over n); interleaving kGroup steps overlaps kGroup such chains.
-template <typename TU, typename TY, int N, bool kStates, bool kGate>
+template <typename TU, typename TY, int N, bool kStates, int kEpi>
 __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
+  constexpr bool kGate = kEpi == kEpiGate;
   constexpr int CPW = 32 / N;  // channels per warp
   constexpr int kCols = (2 * N + 31) / 32;             // staged B|C columns per lane
   constexpr int kRowsPerPass = 32 * kCols / (2 * N);  // B|C rows per warp pass
@@ -134,7 +157,7 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   float* s_delta = s_row + kTile * K;   // [kTile][CPW]
   float* s_du = s_delta + kTile * CPW;  // [kTile][CPW]
   float* s_u = s_du + kTile * CPW;      // [kTile][CPW]
-  float* s_g = s_u + kTile * CPW;       // [kTile][CPW], kGate: silu(z)
+  float* s_g = s_u + kTile * CPW;       // [kTile][CPW], kEpiGate: silu(z)
 
   const int lane = threadIdx.x;
   const int n = lane % N;
@@ -146,7 +169,7 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   const bool active = d < Di;
 
   const float a_n = active ? p.A[(size_t)d * N + n] : 0.f;
-  const float d_skip = active ? p.dskip[d] : 0.f;
+  const float d_skip = active && (kEpi != kEpiRound || p.dskip) ? p.dskip[d] : 0.f;
   float h = 0.f;
 
   const size_t bl = (size_t)b * L;  // the batch row's first time step
@@ -242,8 +265,14 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
         for (int k = 0; k < kGroup; ++k) {
           if (tg + k >= nt) break;
           const int ti = (tg + k) * CPW + cl;
-          float v = fmaf(s_u[ti], d_skip, part[k]);
-          if constexpr (kGate) v *= s_g[ti];
+          float v;
+          if constexpr (kEpi == kEpiRound) {
+            v = round_to(part[k], yb);
+            if (p.dskip) v = fmaf(s_u[ti], d_skip, v);
+          } else {
+            v = fmaf(s_u[ti], d_skip, part[k]);
+            if constexpr (kGate) v *= s_g[ti];
+          }
           lfsr::store(yb + (size_t)(t0 + tg + k) * Di + d, v);
         }
       }
@@ -390,25 +419,26 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
   out[i] = s;
 }
 
-template <typename TU, typename TY, int N, bool kStates, bool kGate>
+template <typename TU, typename TY, int N, bool kStates, int kEpi>
 cudaError_t launch_scan(const ScanParams& p, int B, cudaStream_t stream) {
   constexpr int CPW = 32 / N;
   const int K = p.mode == kFromDbc ? p.R + 2 * N : 2 * N;
-  const size_t smem = sizeof(float) * (size_t)kTile * (K + (kGate ? 4 : 3) * CPW);
-  cudaError_t e = lfsr::set_smem((const void*)scan_kernel<TU, TY, N, kStates, kGate>, smem);
+  const size_t smem =
+      sizeof(float) * (size_t)kTile * (K + (kEpi == kEpiGate ? 4 : 3) * CPW);
+  cudaError_t e = lfsr::set_smem((const void*)scan_kernel<TU, TY, N, kStates, kEpi>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.Di + CPW - 1) / CPW, B);
-  scan_kernel<TU, TY, N, kStates, kGate><<<grid, 32, smem, stream>>>(p);
+  scan_kernel<TU, TY, N, kStates, kEpi><<<grid, 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TU, typename TY, bool kStates, bool kGate>
+template <typename TU, typename TY, bool kStates, int kEpi>
 cudaError_t dispatch_n(const ScanParams& p, int B, int N, cudaStream_t s) {
   switch (N) {
-    case 4: return launch_scan<TU, TY, 4, kStates, kGate>(p, B, s);
-    case 8: return launch_scan<TU, TY, 8, kStates, kGate>(p, B, s);
-    case 16: return launch_scan<TU, TY, 16, kStates, kGate>(p, B, s);
-    case 32: return launch_scan<TU, TY, 32, kStates, kGate>(p, B, s);
+    case 4: return launch_scan<TU, TY, 4, kStates, kEpi>(p, B, s);
+    case 8: return launch_scan<TU, TY, 8, kStates, kEpi>(p, B, s);
+    case 16: return launch_scan<TU, TY, 16, kStates, kEpi>(p, B, s);
+    case 32: return launch_scan<TU, TY, 32, kStates, kEpi>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -427,9 +457,9 @@ cudaError_t scan_entry(const void* u, const void* dbc, const void* wdt, const vo
   p.states = static_cast<float*>(states);
   p.L = L; p.Di = Di; p.R = R; p.spacing = spacing; p.mode = kFromDbc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lfsr::kF32) return dispatch_n<float, float, kStates, false>(p, B, N, s);
+  if (dtype == lfsr::kF32) return dispatch_n<float, float, kStates, kEpiSkip>(p, B, N, s);
   if (dtype == lfsr::kBF16)
-    return dispatch_n<__nv_bfloat16, __nv_bfloat16, kStates, false>(p, B, N, s);
+    return dispatch_n<__nv_bfloat16, __nv_bfloat16, kStates, kEpiSkip>(p, B, N, s);
   return cudaErrorInvalidValue;
 }
 
@@ -518,11 +548,32 @@ LFSR_EXPORT int lfsr_scan_gate(const void* u, const void* dbc, const void* delta
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (u_dtype == lfsr::kF32 && g_dtype == lfsr::kF32)
-    return dispatch_n<float, float, false, true>(p, B, N, s);
+    return dispatch_n<float, float, false, kEpiGate>(p, B, N, s);
   if (u_dtype == lfsr::kF32 && g_dtype == lfsr::kBF16)
-    return dispatch_n<float, bf16, false, true>(p, B, N, s);
+    return dispatch_n<float, bf16, false, kEpiGate>(p, B, N, s);
   if (u_dtype == lfsr::kBF16 && g_dtype == lfsr::kBF16)
-    return dispatch_n<bf16, bf16, false, true>(p, B, N, s);
+    return dispatch_n<bf16, bf16, false, kEpiGate>(p, B, N, s);
+  return cudaErrorInvalidValue;
+}
+
+// K9a: y = round(round(scan) + u D) in u's dtype, delta given (kGivenRaw:
+// before softplus; kGiven: after it). u, delta and y are contiguous; B and C
+// are read at row strides (elements). dskip may be null (no D skip). u,
+// delta, B, C and y are all of ``dtype``.
+LFSR_EXPORT int lfsr_scan_given(const void* u, const void* delta, const void* bm, long long sbm,
+                                const void* cm, long long scm, void* y, const void* A,
+                                const void* dskip, int B, int L, int Di, int N, int mode,
+                                int dtype, void* stream) {
+  if (B < 1 || L < 1 || Di < 1 || (mode != kGivenRaw && mode != kGiven))
+    return cudaErrorInvalidValue;
+  ScanParams p{};
+  p.u = u; p.delta = delta; p.bm = bm; p.sbm = sbm; p.cm = cm; p.scm = scm; p.y = y;
+  p.A = static_cast<const float*>(A); p.dskip = static_cast<const float*>(dskip);
+  p.L = L; p.Di = Di; p.R = 0; p.spacing = 1; p.mode = mode;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == lfsr::kF32) return dispatch_n<float, float, false, kEpiRound>(p, B, N, s);
+  if (dtype == lfsr::kBF16)
+    return dispatch_n<__nv_bfloat16, __nv_bfloat16, false, kEpiRound>(p, B, N, s);
   return cudaErrorInvalidValue;
 }
 

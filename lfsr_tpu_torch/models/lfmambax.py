@@ -9,13 +9,15 @@ exactly where the JAX module casts, and the float32 promotions the JAX
 model makes (a float32 ``scale`` parameter times a bf16 tensor) are kept,
 so the residual stream between blocks is float32 as on the TPU.
 
-The kernels of the TPU path: K1 (Mamba scan; K2/K3 forward and adjoint
-when a gradient is wanted; K9b or K9c in its place under
-``model_kwargs={'scan_impl': 'gated' | 'fused'}``), K4/K5 (cross-scan gather and scatter), K6
-(window attention) and, on blocks at or above its gate (whole-scene square
-mosaics, batch-8 training patches), K7 (LayerNorm + local branch) run as
-the port's CUDA kernels on CUDA tensors. ``module.train()`` turns on the
-blocks' dropout (JAX ``train=True``).
+The kernels on this model's path run as the port's CUDA kernels on CUDA
+tensors: K1 (Mamba scan; K2/K3 forward and adjoint when a gradient is
+wanted; K9b or K9c in its place under ``model_kwargs={'scan_impl': 'gated'
+| 'fused'}``), K4/K5 (cross-scan gather and scatter), K6 (window
+attention), on blocks at or above its gate (whole-scene square mosaics,
+batch-8 training patches) K7 (LayerNorm + local branch), and once per
+forward K10 (the HLFR tail: expansion matmul + lrelu + the folded
+out-conv). ``module.train()`` turns on the blocks' dropout (JAX
+``train=True``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from lfsr_tpu_torch.ops.block import ln_msl, ln_msl_supported
 from lfsr_tpu_torch.ops.cross_scan import (
     cross_scan_gather, cross_scan_scatter, layer_norm_fast,
 )
-from lfsr_tpu_torch.ops.head import hlfr_tail_plain
+from lfsr_tpu_torch.ops.head import hlfr_tail
 from lfsr_tpu_torch.ops.layout import macpi_to_sai, sai_to_macpi
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
@@ -120,8 +122,8 @@ class MultiScaleLocal(nn.Module):
 
 class CrossScanSSM(nn.Module):
     """4-way cross-scan through one shared Mamba: K4 (permute + LayerNorm)
-    -> Mamba (K1, K9b or K9c by ``scan_impl``) -> K5 (un-permute + 1x1 mix +
-    scaled residual)."""
+    -> Mamba (K1, K9b, K9c or the plain reference by ``scan_impl``) -> K5
+    (un-permute + 1x1 mix + scaled residual)."""
 
     def __init__(self, feats: int, d_state: int, d_conv: int, expand: float, dt,
                  device=None, scan_impl: str = "pallas"):
@@ -396,7 +398,7 @@ class HLFR(nn.Module):
             if si == len(self.stages) - 1:
                 k3 = self.Conv_9.weight.permute(2, 3, 1, 0).to(dt)  # HWIO
                 kf = fold_out_conv(k3, r)
-                out = hlfr_tail_plain(y.to(dt), wexp, kf, self.Conv_9.bias.to(dt), 0.1)
+                out = hlfr_tail(y.to(dt), wexp, kf, self.Conv_9.bias.to(dt), 0.1)
                 out = pixel_shuffle(out, r)
             else:
                 y = lrelu(pixel_shuffle(y @ wexp, r))
@@ -409,8 +411,8 @@ DEFAULT_PHASES = ((4, 0.25), (5, 0.35), (3, None))
 @register_model("LFMambaX", loss=composite_v8_builder, whole_scene_ok=True)
 class LFMambaX(nn.Module):
     """The flagship. Config overrides (``cfg.model_kwargs``): channels,
-    d_state, d_conv, expand, use_macpi, phases, scan_impl ('pallas', 'gated'
-    or 'fused'; the parameter tree does not depend on it)."""
+    d_state, d_conv, expand, use_macpi, phases, scan_impl ('pallas', 'gated',
+    'fused' or 'assoc'; the parameter tree does not depend on it)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()

@@ -9,11 +9,14 @@
      output is the block's
   'fused': K9c (conv + SiLU + x_proj + dt projection + scan + D skip + gate,
      float32 inside) -> out_proj
+  'assoc': the plain reference of the whole inner pipeline,
+     ``mamba_inner_plain`` (JAX's ``mamba_inner_ref``, float32 inside, its
+     scan chunked at the flagship's L) -> out_proj; no scan kernel
 
-in the dtypes and roundings of ssm.py:99-153. The TPU's other opt-in,
-``'assoc'`` (the pure-JAX reference end to end), is not ported. On CPU
-tensors the kernels run their plain twins; JAX's CPU oracle for every
-branch is ``pallas_scan.mamba_inner_ref`` (the same math in float32).
+in the dtypes and roundings of ssm.py:99-153 ('assoc' is the branch JAX
+takes for any other scan_impl, on any backend). On CPU tensors the kernels
+run their plain twins; JAX's CPU oracle for every branch is
+``pallas_scan.mamba_inner_ref`` (the same math in float32).
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lfsr_tpu_torch.ops.scan import (
-    conv_silu, mamba_inner_fused, scan_gated_fused, selective_scan_proj,
+    conv_silu, mamba_inner_fused, mamba_inner_plain, scan_gated_fused, selective_scan_proj,
 )
 
-SCAN_IMPLS = ("pallas", "gated", "fused")
+SCAN_IMPLS = ("pallas", "gated", "fused", "assoc")
 
 
 class Mamba(nn.Module):
@@ -62,10 +65,11 @@ class Mamba(nn.Module):
         w_dt = self.dt_proj.weight.t()  # [R, Di]
         w_out = self.out_proj.weight.t()  # [Di, D]
         A = -torch.exp(self.A_log)
-        if self.scan_impl == "fused":
-            y = mamba_inner_fused(xs, z, wconv.contiguous(), self.conv1d.bias,
-                                  self.x_proj.weight.t().contiguous(), w_dt.contiguous(),
-                                  self.dt_proj.bias, A, self.D)
+        if self.scan_impl in ("fused", "assoc"):
+            inner = mamba_inner_fused if self.scan_impl == "fused" else mamba_inner_plain
+            y = inner(xs, z, wconv.contiguous(), self.conv1d.bias,
+                      self.x_proj.weight.t().contiguous(), w_dt.contiguous(),
+                      self.dt_proj.bias, A, self.D)
             return y.to(dt) @ w_out.to(dt)
         xc = conv_silu(xs, wconv, self.conv1d.bias, dt)
         dbc = xc @ self.x_proj.weight.t().to(dt)

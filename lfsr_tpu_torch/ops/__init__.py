@@ -2,8 +2,8 @@
 
 Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
 plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
-scan's autograd Function (``scan.ScanProj``) and K4-K8, K9b and K9c inside
-``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
+scan's autograd Function (``scan.ScanProj``) and K4-K8, K9a-K9c and K10
+inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace.
 """
 
@@ -11,10 +11,11 @@ from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
+from lfsr_tpu_torch.ops.head import hlfr_tail
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
-    mamba_inner_fused, scan_gated_fused, selective_scan_proj, selective_scan_proj_bwd,
-    selective_scan_proj_states,
+    mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
+    selective_scan_proj_bwd, selective_scan_proj_states,
 )
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
@@ -51,6 +52,10 @@ KERNELS = {
         masked_mha_fused, "lfsr_tpu_torch/csrc/masked_attention.cu",
         "lfsr_tpu/ops/pallas_masked_attention.py:86",
     ),
+    "K9a selective_scan_fused": (
+        selective_scan_fused, "lfsr_tpu_torch/csrc/scan.cu",
+        "lfsr_tpu/ops/pallas_scan.py:557",
+    ),
     "K9b scan_gated_fused": (
         scan_gated_fused, "lfsr_tpu_torch/csrc/mamba_inner.cu",
         "lfsr_tpu/ops/pallas_scan.py:444",
@@ -58,6 +63,9 @@ KERNELS = {
     "K9c mamba_inner_fused": (
         mamba_inner_fused, "lfsr_tpu_torch/csrc/mamba_inner.cu",
         "lfsr_tpu/ops/pallas_scan.py:747",
+    ),
+    "K10 hlfr_tail": (
+        hlfr_tail, "lfsr_tpu_torch/csrc/hlfr_tail.cu", "lfsr_tpu/ops/pallas_head.py:151",
     ),
 }
 

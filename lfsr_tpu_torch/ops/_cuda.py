@@ -65,6 +65,10 @@ _SIGNATURES = {
     "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
     # q, k, v, mask transposed, o, B, L, D, heads, qscale, dtype, stream
     "lfsr_masked_mha": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # u, delta, B, sB, C, sC, y, A, D (or null), B, L, Di, N, mode, dtype, stream
+    "lfsr_scan_given": [_P, _P] + [_P, _S] * 2 + [_P] * 3 + [_I] * 6 + [_P],
+    # y, w1, w36, bias, out, B, H, W, C, Cz, slope, dtype, stream
+    "lfsr_hlfr_tail": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

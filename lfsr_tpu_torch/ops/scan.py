@@ -1,5 +1,6 @@
 """K1 / K2 / K3 — the Mamba selective scan with the dt projection folded in;
-K9b / K9c — the scan with the Mamba epilogue, and the whole inner pipeline.
+K9b / K9c — the scan with the Mamba epilogue, and the whole inner pipeline;
+K9a — the op-level scan with delta, B and C given.
 
 Port of lfsr_tpu/ops/pallas_scan.py::selective_scan_proj and its custom_vjp
 (Pallas kernels ``_scan_proj_kernel`` K1, ``_scan_proj_states_kernel`` K2,
@@ -22,6 +23,16 @@ their own kernels: :func:`scan_gated_fused` (K9b, ``'gated'``:
 ``_mamba_inner_kernel``). Their gradient is their plain twin's
 (``_cuda.PlainVJP``), as the JAX custom_vjps differentiate the references.
 
+:func:`selective_scan_fused` (K9a, ``_scan_chunk_kernel`` and its
+flat-lane variant, one function) is an op of the JAX package that no model
+calls; its gradient is that of the chunked scan, as JAX's custom_vjp.
+
+The plain twins of K1, K9b and K9c scan as the JAX references do
+(:func:`scan_ref`): chunk by chunk (``selective_scan_chunked``, chunk 256,
+checkpointed) when ``L % 256 == 0 and L > 4096``, which every L of the
+flagship's paths meets (tiled, whole-scene, training), else over the whole
+sequence at once.
+
 Each kernel wrapper launches its kernel (csrc/scan.cu, csrc/mamba_inner.cu)
 on a CUDA tensor and runs its plain twin on a CPU tensor. The kernels take
 any L: the TPU's pad-to-a-multiple-of-128 (ssm.py:109-113) and the
@@ -36,10 +47,15 @@ import torch
 import torch.nn.functional as F
 
 from lfsr_tpu_torch.ops import _cuda
-from lfsr_tpu_torch.ops.selective_scan import readout, scan_states, selective_scan
+from lfsr_tpu_torch.ops.selective_scan import (
+    readout, scan_states, selective_scan, selective_scan_chunked,
+)
 
 # steps between saved states (K2) == the adjoint kernel's chunk (K3)
 STATE_SPACING = 64
+# the twins scan chunk by chunk at L % SCAN_CHUNK == 0 and L > CHUNKED_ABOVE,
+# as the JAX references do (pallas_scan.py:281-283, 472-475, 720-723)
+SCAN_CHUNK, CHUNKED_ABOVE = 256, 4096
 # where the forward scan takes delta from (ScanParams::mode, csrc/scan.cu)
 _FROM_DBC, _GIVEN_RAW, _GIVEN = 0, 1, 2
 
@@ -60,6 +76,16 @@ def conv_silu(xs: torch.Tensor, wconv: torch.Tensor, bconv: torch.Tensor, dt) ->
     for k in range(1, K):
         acc = acc + xp[:, k : k + L] * w[k]
     return F.silu(bconv.to(dt) + acc)
+
+
+def scan_ref(u, delta, A, Bc, Cc, D_skip=None):
+    """The twins' scan, with JAX's switch: :func:`selective_scan_chunked`
+    (chunk 256) when ``L % 256 == 0 and L > 4096``, else the log-depth
+    :func:`selective_scan` over the whole sequence."""
+    L = u.shape[1]
+    if L % SCAN_CHUNK == 0 and L > CHUNKED_ABOVE:
+        return selective_scan_chunked(u, delta, A, Bc, Cc, D_skip, SCAN_CHUNK)
+    return selective_scan(u, delta, A, Bc, Cc, D_skip)
 
 
 def _split_dbc(dbc, Wdt, bdt, N):
@@ -97,7 +123,7 @@ def selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip):
     """Plain twin of K1. u [B, L, Di]; dbc [B, L, R+2N]; Wdt [R, Di];
     bdt [Di]; A [Di, N] (negative); D_skip [Di]. Returns u.dtype."""
     delta, Bc, Cc = _split_dbc(dbc, Wdt, bdt, A.shape[1])
-    return selective_scan(u, delta, A, Bc, Cc, D_skip)
+    return scan_ref(u, delta, A, Bc, Cc, D_skip)
 
 
 def _scan_proj(u, dbc, Wdt, bdt, A, D_skip):
@@ -262,7 +288,7 @@ def scan_gated_plain(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus=False):
     the product; returns u.dtype."""
     f32 = torch.float32
     d = softplus(delta.to(f32)) if pre_softplus else delta.to(f32)
-    y = selective_scan(u, d, A, Bc, Cc, D_skip).to(f32) * F.silu(z.to(f32))
+    y = scan_ref(u, d, A, Bc, Cc, D_skip).to(f32) * F.silu(z.to(f32))
     return (y.to(Wout.dtype) @ Wout).to(u.dtype)
 
 
@@ -326,7 +352,7 @@ def mamba_inner_plain(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
     f32 = torch.float32
     xc = conv_silu(xs, wconv, bconv, f32)
     delta, Bc, Cc = _split_dbc(xc @ Wx.to(f32), Wdt, bdt, A.shape[1])
-    y = selective_scan(xc, delta, A, Bc, Cc, D_skip)
+    y = scan_ref(xc, delta, A, Bc, Cc, D_skip)
     return (y * F.silu(z.to(f32))).to(xs.dtype)
 
 
@@ -374,3 +400,80 @@ def mamba_inner_fused(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
     if _cuda.wants_grad(*args):
         return _cuda.PlainVJP.apply(_mamba_inner, mamba_inner_plain, *args)
     return _mamba_inner(*args)
+
+
+# --------------------------------------------------------------------------
+# K9a: the op-level selective scan (pallas_scan.py::selective_scan_fused)
+# --------------------------------------------------------------------------
+
+def selective_scan_fused_plain(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
+                               pre_softplus=False):
+    """Plain twin of K9a, its forward as JAX computes it
+    (pallas_scan.py:808-814): y = scan(u, softplus(delta) if ``pre_softplus``
+    else delta, A, Bc, Cc) rounded to u.dtype, then, with ``D_skip``,
+    (y + u D_skip) rounded again. The scan is :func:`selective_scan_chunked`
+    at ``chunk``; at an L that is not a multiple of it (which JAX never
+    runs) the log-depth :func:`selective_scan`, so the kernel can be held
+    against it at any L."""
+    f32 = torch.float32
+    d = softplus(delta.to(f32)) if pre_softplus else delta
+    if u.shape[1] % chunk == 0:
+        y = selective_scan_chunked(u, d, A, Bc, Cc, None, chunk)
+    else:
+        y = selective_scan(u, d, A, Bc, Cc)
+    if D_skip is not None:
+        y = (y.to(f32) + u.to(f32) * D_skip.to(f32)).to(u.dtype)
+    return y
+
+
+def selective_scan_fused_grad_ref(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
+                                  pre_softplus=False):
+    """What K9a's gradient differentiates, JAX's ``_bwd`` reference
+    (pallas_scan.py:824-836): :func:`selective_scan_chunked` with D inside
+    (one rounding), which raises unless ``L % chunk == 0``."""
+    d = softplus(delta.to(torch.float32)) if pre_softplus else delta
+    return selective_scan_chunked(u, d, A, Bc, Cc, D_skip, chunk)
+
+
+def _selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
+                          pre_softplus=False):
+    """K9a: kernel on CUDA tensors, plain twin on CPU tensors. The kernel
+    takes u, delta, Bc and Cc in one dtype (Bc and Cc may be slices of a
+    wider last axis), A and D_skip float32, and any L: ``chunk`` is a
+    Pallas tiling parameter with no counterpart in it."""
+    if _cuda.use_plain(u):
+        return selective_scan_fused_plain(u, delta, A, Bc, Cc, D_skip, chunk, pre_softplus)
+    B, L, Di = u.shape
+    N = A.shape[1]
+    dev, f32 = u.device, torch.float32
+    code = _cuda.dtype_code(u, "u")
+    _cuda.check(u, "u", (B, L, Di), u.dtype, dev)
+    _cuda.check(delta, "delta", (B, L, Di), u.dtype, dev)
+    sb = _cuda.row_stride(Bc, "Bc", (B, L, N), u.dtype, dev)
+    sc = _cuda.row_stride(Cc, "Cc", (B, L, N), u.dtype, dev)
+    _cuda.check(A, "A", (Di, N), f32, dev)
+    if D_skip is not None:
+        _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
+    if N not in (4, 8, 16, 32):
+        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32), got N={N}")
+    y = torch.empty_like(u)
+    _cuda.launch(
+        "lfsr_scan_given", u.data_ptr(), delta.data_ptr(), Bc.data_ptr(), sb, Cc.data_ptr(),
+        sc, y.data_ptr(), A.data_ptr(), None if D_skip is None else D_skip.data_ptr(),
+        B, L, Di, N, _GIVEN_RAW if pre_softplus else _GIVEN, code, _cuda.stream_of(u),
+    )
+    selective_scan_fused.launches += 1
+    return y
+
+
+@_cuda.counted
+def selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
+                         pre_softplus=False):
+    """K9a, the op ``pallas_scan.selective_scan_fused`` (no model calls
+    it): the kernel (its twin on the CPU); with a gradient wanted, through
+    ``_cuda.PlainVJP`` with :func:`selective_scan_fused_grad_ref`'s
+    gradient, as JAX's custom_vjp takes it through the chunked scan."""
+    args = (u, delta, A, Bc, Cc, D_skip, chunk, pre_softplus)
+    if _cuda.wants_grad(*args[:6]):
+        return _cuda.PlainVJP.apply(_selective_scan_fused, selective_scan_fused_grad_ref, *args)
+    return _selective_scan_fused(*args)

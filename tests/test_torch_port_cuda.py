@@ -4,15 +4,17 @@ Each kernel runs on CUDA tensors and is compared with its plain PyTorch
 twin on the same inputs: float32 with TF32 off to 1e-4 of the output scale
 (sums in another order, ``expf``/``rsqrtf`` rounding), bfloat16 to 3e-2
 (a few bf16 roundings at other places; float32 outputs from bf16 inputs,
-K2's states and K3's gradients, to 1e-4), each output against its own
-scale. K9b and K9c read B and C, z and xs at the row strides the model
-gives them (slices of dbc and of in_proj's output), also at an L that is
-not a multiple of 64. Also: launch counters, K2's y equal to K1's bit for
-bit, the gradients of the six autograd Functions (the scan's K2 + K3, and
-K4-K8) on the kernels vs on the twins, a block at K7's gate and a block
-under each of ``scan_impl='gated'``/``'fused'`` on the kernels vs on the
-plain twins, the small flagship and a one-block EPIT on CUDA vs on the
-CPU.
+K2's states, K3's gradients and K10's output, to 1e-4 in float32 and 3e-2
+from bf16 inputs), each output against its own scale. K9a, K9b and K9c read
+B and C (and z, xs) at the row strides the model gives them (slices of dbc
+and of in_proj's output), also at an L that is not a multiple of 64; K10
+(the HLFR tail) runs on the last stage's map at twice the block's side and
+at an odd size. Also: launch counters, K2's y equal to K1's bit for bit,
+the gradients of the autograd Functions (the scan's K2 + K3, and the
+PlainVJPs of K4-K8, K9a and K10) on the kernels vs on the twins, a block at
+K7's gate and a block under each of ``scan_impl='gated'``/``'fused'`` on
+the kernels vs on the plain twins, the small flagship (K10 once) and a
+one-block EPIT on CUDA vs on the CPU.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -29,14 +31,18 @@ from lfsr_tpu_torch.bridge import init_params
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.models.epit import band_mask
-from lfsr_tpu_torch.ops import _cuda, block, cross_scan, masked_attention, scan, window_attention
+from lfsr_tpu_torch.models.lfmambax import fold_out_conv
+from lfsr_tpu_torch.ops import (
+    _cuda, block, cross_scan, head, masked_attention, scan, window_attention,
+)
 from lfsr_tpu_torch.ops.block import LN_MSL_MIN_PIXELS
 
 pytestmark = pytest.mark.gpu
 
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 # by output dtype: a float32 output (K2's states, K3's gradients) from bf16
-# inputs is computed in float32 on both sides
+# inputs is computed in float32 on both sides; K10's float32 output is not
+# (both sides round z to bf16), so it goes by its input dtype
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
@@ -86,6 +92,16 @@ def _cases(g, dtype, B, H, W, C, N):
     xz = _rn(g, B, L, 2 * Di, dtype=dtype)
     return {
         **cases,
+        # delta before softplus, D given; chunk 64 (the gradient's chunked
+        # scan needs L % chunk == 0: 40 x 72 = 45 x 64)
+        "K9a": (scan.selective_scan_fused, scan.selective_scan_fused_plain,
+                (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, Di, s=0.5, dtype=dtype), A,
+                 dbc[..., R : R + N], dbc[..., R + N :], 1 + _rn(g, Di, s=0.1), 64, True)),
+        # the HLFR tail on the last stage's [B, 2H, 2W, C] map, rr 4
+        "K10": (head.hlfr_tail, head.hlfr_tail_plain,
+                (_rn(g, B, 2 * H, 2 * W, C, dtype=dtype), _rn(g, C, 4 * C, s=C**-0.5, dtype=dtype),
+                 fold_out_conv(_rn(g, 3, 3, C, 1, s=0.1, dtype=dtype), 2),
+                 _rn(g, 1, s=0.1, dtype=dtype))),
         "K9b": (scan.scan_gated_fused, scan.scan_gated_plain,
                 (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, Di, s=0.5, dtype=dtype), A,
                  dbc[..., R : R + N], dbc[..., R + N :], xz[..., Di:],
@@ -97,7 +113,8 @@ def _cases(g, dtype, B, H, W, C, N):
     }
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9b", "K9c"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c",
+                                  "K10"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 16, 16, 16, 4), (2, 160, 160, 64, 16),
                                    (2, 40, 72, 64, 16)],
@@ -112,10 +129,11 @@ def test_kernel_matches_plain_twin(cuda, name, dtype, shape):
     want = plain(*args)
     for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
         err, scale = _cuda.twin_error(a, b)
-        assert err <= TOL[a.dtype] * scale, err
+        # K10's float32 output comes from z rounded to the input's dtype
+        assert err <= TOL[dtype if name == "K10" else a.dtype] * scale, err
 
 
-@pytest.mark.parametrize("name", ["K9b", "K9c"])
+@pytest.mark.parametrize("name", ["K9a", "K9b", "K9c"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k9_at_a_ragged_length_matches_plain_twin(cuda, name, dtype):
     """L = 25 x 39 = 975, a multiple of neither 64 nor 128 (the TPU pads;
@@ -125,6 +143,22 @@ def test_k9_at_a_ragged_length_matches_plain_twin(cuda, name, dtype):
     torch.cuda.synchronize()
     err, scale = _cuda.twin_error(got, plain(*args))
     assert got.dtype == dtype and err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10_at_an_odd_size_matches_plain_twin(cuda, dtype):
+    """y [1, 37, 53, 64]: neither side a multiple of the kernel's 16-pixel
+    tile, so its halo and its last tiles run past the image's edges."""
+    g = torch.Generator().manual_seed(8)
+    args = (_rn(g, 1, 37, 53, 64, dtype=dtype), _rn(g, 64, 256, s=0.125, dtype=dtype),
+            fold_out_conv(_rn(g, 3, 3, 64, 1, s=0.1, dtype=dtype), 2), _rn(g, 1, s=0.1, dtype=dtype))
+    before = head.hlfr_tail.launches
+    got = head.hlfr_tail(*args)
+    torch.cuda.synchronize()
+    assert head.hlfr_tail.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (1, 37, 53, 4)
+    err, scale = _cuda.twin_error(got, head.hlfr_tail_plain(*args))
+    assert err <= TOL[dtype] * scale, err
 
 
 @pytest.mark.parametrize("impl", ["gated", "fused"])
@@ -153,21 +187,23 @@ def test_k2_y_equals_k1_y(cuda, dtype):
     assert states.dtype == torch.float32 and states.shape == (2, -(-40 * 72 // 64), 16, 80)
 
 
-@pytest.mark.parametrize("name", ["K1", "K4", "K5", "K6", "K7"])
+@pytest.mark.parametrize("name", ["K1", "K4", "K5", "K6", "K7", "K9a", "K10"])
 def test_function_gradients_match_plain_twin(cuda, name):
     """The autograd Function of each wrapper (the scan's forward K2 and
-    backward K3; K4-K7 kernel forward + the twin's gradient) against
-    autograd through the plain twin, float32, 1e-4 of each gradient's scale."""
+    backward K3; K4-K7, K9a and K10 kernel forward + the twin's gradient)
+    against autograd through the plain twin, float32, 1e-4 of each
+    gradient's scale."""
     kern, plain, args = _cases(torch.Generator().manual_seed(2), torch.float32, 2, 40, 72, 64, 16)[name]
     scan_kernels = (scan.selective_scan_proj_states, scan.selective_scan_proj_bwd)
     before = [k.launches for k in scan_kernels]
     outs = []
     for run in (kern, plain):
-        leaves = [a.detach().clone().requires_grad_(a.is_floating_point()) for a in args]
+        leaves = [a.detach().clone().requires_grad_(a.is_floating_point())
+                  if isinstance(a, torch.Tensor) else a for a in args]
         y = run(*leaves)
         y = y if isinstance(y, tuple) else (y,)
         cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(3)).cuda() for o in y]
-        wrt = [a for a in leaves if a.requires_grad]
+        wrt = [a for a in leaves if isinstance(a, torch.Tensor) and a.requires_grad]
         outs.append(torch.autograd.grad(y, wrt, cot))
     if name == "K1":  # forward K2, backward K3, once each
         assert [k.launches for k in scan_kernels] == [b + 1 for b in before]
@@ -201,11 +237,13 @@ def test_small_flagship_on_cuda_matches_cpu(cuda, dtype, tol):
     sd = init_params(cfg, torch.Generator().manual_seed(0))
     x = torch.rand(2, 40, 40, 1, generator=torch.Generator().manual_seed(1))
     outs = []
+    before = head.hlfr_tail.launches
     for dev in ("cpu", cuda):
         model = get_model(cfg, device=dev)
         model.load_state_dict(sd)
         with torch.inference_mode():
             outs.append(model(x.to(dev)).cpu())
+    assert head.hlfr_tail.launches == before + 1  # the tail, on CUDA only
     assert (outs[1] - outs[0]).abs().max().item() <= tol
 
 

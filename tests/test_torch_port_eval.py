@@ -25,6 +25,17 @@ from lfsr_tpu_torch.train import evaluate as teval
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The chunked scans are thousands of small ops: on one intra-op thread
+    they spend no time in thread barriers, also when the suite's workers
+    share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**kw):
     return Config(compute_dtype="float32", model_kwargs=SMALL, patch_size_for_test=8,
                   stride_for_test=4, whole_scene_for_test=False, **kw)

@@ -4,8 +4,8 @@ The JAX side runs as its own tests run it on the CPU: the K1 scan and K6
 window-attention Pallas kernels in interpret mode (automatic off the TPU),
 the K4/K5 cross-scan kernels in interpret mode via
 ``pallas_layout.FORCE_KERNEL_INTERPRET`` (set and restored by a fixture).
-K7 (``ln_msl``) and the retired K10 (``hlfr_tail``) are held against their
-JAX reference forms. All in float32. Tolerances: data movement + LayerNorm
+K7 (``ln_msl``) and K10 (``hlfr_tail``, retired on the TPU) are held against
+their JAX reference forms. All in float32. Tolerances: data movement + LayerNorm
 + attention <= 1e-5 (float32 sums in another order); the scan <= 1e-4
 relative (exp and the recurrence's sums in another order).
 """

@@ -4,12 +4,14 @@ flax and optax blocked.
 A fresh interpreter blocks every ``lfsr_tpu``/``jax``/``jaxlib``/``flax``/
 ``optax``/``h5py``/``orbax`` import (``lfsr_tpu_torch`` is a package of its
 own name and passes), imports every module of the port (the trainer,
-optimizer, masking, losses and submission tools included), runs a CPU
-forward of the small flagship, a tiled and a whole-scene
-``evaluate_sets`` (the latter also under ``scan_impl='gated'`` and
-``'fused'``), ``infer_submission`` on tiny scenes and one train step,
-then a forward and one train step of a one-block EPIT, and checks that no
-blocked module was loaded. The machine with the card has none of the
+optimizer, masking, losses and submission tools included), runs K9a's op
+``selective_scan_fused`` (forward and gradient, the chunked scan's) and
+K10's ``hlfr_tail`` on CPU tensors, a CPU forward of the small flagship, a
+tiled and a whole-scene ``evaluate_sets`` (the latter also under
+``scan_impl='gated'`` and ``'fused'``), ``infer_submission`` on tiny
+scenes and one train step, also one under ``scan_impl='gated'``, then a
+forward and one train step of a one-block EPIT, and checks that no blocked
+module was loaded. The machine with the card has none of the
 third-party ones, and the port imports nothing of the JAX package. Every
 model and trainer is asked for the CPU (``device="cpu"``); the entry points
 default to the card. On the card's machine:
@@ -45,9 +47,29 @@ import numpy as np
 import torch
 import lfsr_tpu_torch
 
+torch.set_num_threads(1)  # many small ops (the chunked scans): no thread barriers under load
+
 for mod in pkgutil.walk_packages(lfsr_tpu_torch.__path__, "lfsr_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke  # noqa: F401
+
+from lfsr_tpu_torch.models.lfmambax import fold_out_conv
+from lfsr_tpu_torch.ops import head, selective_scan
+from lfsr_tpu_torch.ops.scan import selective_scan_fused
+
+g = torch.Generator().manual_seed(3)
+u, delta = torch.randn(2, 128, 8, generator=g), torch.rand(2, 128, 8, generator=g)
+A = -torch.rand(8, 4, generator=g) - 0.1
+Bc, Cc, D = torch.randn(2, 128, 4, generator=g), torch.randn(2, 128, 4, generator=g), torch.ones(8)
+u.requires_grad_()
+y = selective_scan_fused(u, delta, A, Bc, Cc, D, 64)
+want = selective_scan.selective_scan_chunked(u, delta, A, Bc, Cc, D, 64)
+assert torch.allclose(y, want, atol=1e-5)
+(gu,) = torch.autograd.grad(y.sum(), u)
+assert gu.shape == u.shape and torch.isfinite(gu).all()
+out = head.hlfr_tail(torch.randn(1, 10, 12, 16, generator=g), torch.randn(16, 64, generator=g),
+                     fold_out_conv(torch.randn(3, 3, 16, 1, generator=g), 2), torch.zeros(1))
+assert out.shape == (1, 10, 12, 4) and torch.isfinite(out).all()
 
 from lfsr_tpu_torch.bridge import init_params
 from lfsr_tpu_torch.config import Config
@@ -96,6 +118,12 @@ tcfg = cfg.replace(batch_size=2, compute_dtype="float32")
 trainer = Trainer(tcfg, 1, init_params(tcfg, torch.Generator().manual_seed(0)), device="cpu")
 data = TrainArrays(rng.random((2, 40, 40), dtype=np.float32),
                    rng.random((2, 160, 160), dtype=np.float32))
+before = trainer.params["HLFR_0.out_scale"].clone()
+m = trainer.run_epoch(data, 0)
+assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m
+assert not torch.equal(before, trainer.params["HLFR_0.out_scale"])
+gcfg = tcfg.replace(model_kwargs={**tcfg.model_kwargs, "scan_impl": "gated"})  # K9b's twin
+trainer = Trainer(gcfg, 1, init_params(gcfg, torch.Generator().manual_seed(0)), device="cpu")
 before = trainer.params["HLFR_0.out_scale"].clone()
 m = trainer.run_epoch(data, 0)
 assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m

@@ -17,7 +17,9 @@ Tolerances, each against max(1, max|want|) unless said otherwise:
 - ``Mamba`` vs the JAX composition float32 1e-5, bf16 2e-2; vs JAX's own
   ``Mamba`` float32 1e-4;
 - the small flagship vs JAX float32 2e-5, bf16 2e-2 absolute (as
-  ``test_torch_port_model.py``); whole-scene PSNR 1e-3 dB.
+  ``test_torch_port_model.py``), also under ``'assoc'`` (JAX's opt-in for
+  the pure reference, ``mamba_inner_ref`` on any backend; the port's
+  ``mamba_inner_plain``, no scan kernel); whole-scene PSNR 1e-3 dB.
 """
 
 import jax
@@ -44,6 +46,17 @@ from lfsr_tpu_torch.train.trainer import Trainer
 
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The chunked scans are thousands of small ops: on one intra-op thread
+    they spend no time in thread barriers, also when the suite's workers
+    share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -212,6 +225,26 @@ def test_mamba_matches_the_tpu_branch(impl, dtype, L):
         _assert_rel(got.numpy(), own.apply({"params": jp}, jnp.asarray(x)), 1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_under_assoc_matches_jax(dtype):
+    """'assoc' is JAX's ``mamba_inner_ref`` + out_proj on every backend; the
+    port's is ``mamba_inner_plain`` + out_proj and counts no launch."""
+    params, tm = _mamba_pair("assoc", dtype)
+    x = np.random.default_rng(10).standard_normal((2, 256, 16)).astype(np.float32)
+    jm = JMamba(d_model=16, d_state=4, d_conv=4, expand=1.25, dtype=getattr(jnp, dtype),
+                scan_impl="assoc")
+    want = np.asarray(jm.apply({"params": {k: jnp.asarray(v) for k, v in params.items()}},
+                               jnp.asarray(x)), np.float32)
+    launches = (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches,
+                scan.selective_scan_proj.launches)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x))
+    assert (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches,
+            scan.selective_scan_proj.launches) == launches
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 256, 16)
+    _assert_rel(got.float().numpy(), want, 1e-5 if dtype == "float32" else 2e-2)
+
+
 # (f) the small flagship under each scan_impl vs JAX LFMambaX ----------------
 
 def _perturbed_params(cfg, x):
@@ -229,7 +262,7 @@ def small_params():
     return x, _perturbed_params(JConfig(compute_dtype="float32", model_kwargs=SMALL), x)
 
 
-@pytest.mark.parametrize("impl", ["gated", "fused"])
+@pytest.mark.parametrize("impl", ["gated", "fused", "assoc"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_small_flagship_matches_jax(small_params, layout_interpret, impl, dtype):
     x, params = small_params
@@ -273,7 +306,7 @@ def test_whole_scene_eval_under_gated_matches_jax(small_params):
 
 # (g) what is not ported raises -----------------------------------------------
 
-@pytest.mark.parametrize("impl", ["assoc", "scan"])
+@pytest.mark.parametrize("impl", ["scan", "chunked"])
 def test_unported_scan_impl_raises(impl):
     cfg = Config(model_kwargs={**SMALL, "scan_impl": impl})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -33,7 +33,11 @@ Phases (any failure exits non-zero):
    banded-mask attention) at EPIT's tiled eval (q/k/v [320, 160, 128]) and
    batch-8 training ([1280, 160, 128]), with EPIT's own mask, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the library
-   yardstick, used nowhere in the port). Each kernel's bound: the larger of
+   yardstick, used nowhere in the port), and which of K8's two kernels
+   took each call (bf16: the tensor-core one; float32: the CUDA-core one).
+   K1 (bf16) also logs its chunk length Tc and the time of each of its
+   three passes at the tiled, Synth and Real shapes (K1 and K2 run the
+   chunk-parallel scan). Each kernel's bound: the larger of
    its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its operations over the peak rate for their type (matrix products of
    bf16 operands 989 TFLOP/s, float32 and all other arithmetic 67 TFLOP/s).
@@ -70,7 +74,9 @@ Phases (any failure exits non-zero):
    default tiled ``evaluate_sets`` of one 512^2-HR scene (32 dispatches of
    2 patches: K8 320 launches, nothing else) against the plain twins, and
    its batch-8 train step (L1, augmentation, masking, AdamW; K8 10 per
-   step), the NaN-skip and one float32 step's gradients kernels vs twins.
+   step), the NaN-skip and one float32 step's gradients kernels vs twins;
+   every K8 launch of the bf16 phases on its tensor-core kernel, of the
+   float32 gradient check on its CUDA-core one.
 8. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
    80], float32, forward and one backward of sum(y^2) on the kernel and on
    the plain twin: y and every gradient against the twin's.
@@ -375,6 +381,20 @@ def timed_call(fn):
     return out, start.elapsed_time(stop)
 
 
+def k1_passes(args, where: str) -> None:
+    """K1's chunk-parallel scan at ``args``: its chunk length Tc and the
+    time of each pass (the wrapper's launches, not counted)."""
+    from lfsr_tpu_torch.ops import scan
+
+    u = args[0]
+    B, L, _ = u.shape
+    tc = scan.scan_chunk_len(B, L)
+    passes = scan.chunk_scan_passes(*args, torch.empty_like(u))
+    times = {name: time_ms(launch, 10, 2) for name, launch in passes}
+    log(f"[kernels] K1 {str(u.dtype)[6:]} {where} passes: Tc {tc} ({-(-L // tc)} chunks x B {B}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" ({CARD})")
+
+
 def check_kernels(results: dict, only=None) -> None:
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
@@ -407,8 +427,16 @@ def check_kernels(results: dict, only=None) -> None:
         for name, where, args in kernel_cases(dtype, g, only):
             kern, plain = pairs[name]
             big = where in WHOLE and name in SCANS
+            k8_before = dict(ma.PATH_LAUNCHES)
             got = kern(*args)
             torch.cuda.synchronize()
+            if name == "K8":  # which of its two kernels took the call
+                path = ma.kernel_path(dtype, args[0].shape[-1] // args[4])
+                assert ma.PATH_LAUNCHES[path] == k8_before[path] + 1, ma.PATH_LAUNCHES
+                log(f"[kernels] K8 {str(dtype)[6:]:8s} {where}: the "
+                    f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})")
+            if name == "K1" and dtype == torch.bfloat16:
+                k1_passes(args, where)
             if name == "K2":  # the training forward's y is K1's, bit for bit
                 same = torch.equal(got[0], scan.selective_scan_proj(*args))
                 log(f"[kernels] K2 {str(dtype)[6:]:8s} y == K1 y bit for bit: {same}")
@@ -559,11 +587,29 @@ def eval_launches(forwards: int, k7_forwards: int, impl: str = "pallas") -> dict
             for k, n in per_forward(impl).items()}
 
 
-def check_counts(counts: dict, want: dict, what: str) -> None:
-    """Every kernel's launches == ``want`` (0 for a kernel it does not list)."""
+def k8_kernel(cfg):
+    """The K8 kernel (``"mma"`` or ``"fma"``) that ``cfg``'s EPIT takes:
+    by its compute dtype, at its head dim (128 channels, HEADS heads)."""
+    from lfsr_tpu_torch.models.epit import HEADS
+    from lfsr_tpu_torch.ops.masked_attention import kernel_path
+
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    return kernel_path(dtype, 128 // HEADS)
+
+
+def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
+    """Every kernel's launches == ``want`` (0 for a kernel it does not list);
+    for ``cfg``'s EPIT, every K8 launch by the kernel ``k8_kernel`` names."""
+    from lfsr_tpu_torch.ops import PATH_LAUNCHES
+
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
+    if cfg is not None and cfg.model_name == "EPIT":
+        k8, path = counts["K8 masked_mha_fused"], k8_kernel(cfg)
+        assert PATH_LAUNCHES[path] == k8 > 0, (PATH_LAUNCHES, k8)
+        log(f"[{what}] K8 launches by kernel {PATH_LAUNCHES}: all {k8} on the "
+            f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel")
 
 
 def check_views(views: dict, scenes, ang: int, s: int, what: str) -> None:
@@ -599,7 +645,7 @@ def run_tiled(model, cfg, per_dispatch: dict, what: str = "tiled") -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    check_counts(counts, {k: n * dispatches for k, n in per_dispatch.items()}, what)
+    check_counts(counts, {k: n * dispatches for k, n in per_dispatch.items()}, what, cfg)
     views = res["Synthetic"]["views"]
     check_views(views, [scene], ang, s, what)
     assert np.isfinite(res["Synthetic"]["psnr"]) and np.isfinite(res["Synthetic"]["ssim"]), res
@@ -811,7 +857,7 @@ def check_grads(sd, data, cfg, per_step: dict, what: str) -> None:
                 loss, list(trainer.params.values())))))
         counts = launch_counts()
         if not plain:
-            check_counts(counts, per_step, f"{what} grad check, kernels")
+            check_counts(counts, per_step, f"{what} grad check, kernels", cfg)
         else:
             assert not any(counts.values()), counts
         del sr, loss
@@ -860,7 +906,7 @@ def run_train(sd, cfg, per_step: dict, profile: bool, what: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    check_counts(counts, {k: n * TRAIN_STEPS for k, n in per_step.items()}, what)
+    check_counts(counts, {k: n * TRAIN_STEPS for k, n in per_step.items()}, what, cfg)
     assert all(np.isfinite(res[k]) for k in ("loss", "psnr", "ssim")), res
     assert res["mask_ratio"] == ratio, res
     extras = " + dropout" if cfg.model_name in _TRAIN_FLAG_MODELS else ""

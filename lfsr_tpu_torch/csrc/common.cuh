@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #define LFSR_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -37,6 +38,68 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: relative error ~2^-22, results
+// below 2^-126 flushed to 0); exp2f wraps the same instruction in range
+// fix-ups that cost more than it where a loop is bound by issue
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- tensor-core helpers (mma.sync m16n8k16, bf16 operands, f32 sums) ----
+// Fragments (PTX ISA, g = lane / 4, t = lane % 4): a0 (row g, k 2t..2t+1),
+// a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t..2t+1,
+// col g), b1 (k 2t + 8.., g); d0, d1 (row g, cols 2t, 2t + 1), d2, d3 (row
+// g + 8, same). Two bf16 values per 32-bit register, the lower index low.
+
+// two adjacent bf16 as one 32-bit register
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a . b
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned). Register i holds
+// matrix i in the fragment layout above (thread (g, t): row g, columns 2t,
+// 2t + 1); with kTrans each matrix is transposed on the way (row 2t and
+// 2t + 1, column g), which makes a B fragment of a row-major [k][n] tile.
+template <bool kTrans = false>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// two floats rounded to bf16 and packed, the first low
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 16 bytes global -> shared without a register round trip (cp.async.cg);
+// complete with cp_async_wait_all() and a barrier
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
 // allow a kernel more than the default 48 KB of dynamic shared memory

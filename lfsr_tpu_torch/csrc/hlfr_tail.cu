@@ -39,11 +39,12 @@
 //  order (bias, then k = 0..8), one (pixel, j) per thread.
 // Shapes the wrapper checks: C in {16, 32, 48, 64}, Cz a multiple of 16,
 // rr = 4 (the last pixel-shuffle stage of r = 2, scales 2 and 4).
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
+
+using lfsr::ld32;
+using lfsr::mma_bf16;
 
 constexpr int kTH = 16, kTW = 16;            // output pixels per tile
 constexpr int kHW = kTW + 2;                 // halo width
@@ -100,23 +101,6 @@ __device__ __forceinline__ void shifted_adds(const TailParams& p, const float* t
 // bfloat16: tensor cores
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b, m16n8k16, bf16 operands, f32 accumulators. Fragments (PTX ISA,
-// g = lane / 4, t = lane % 4): a0 (row g, k 2t..2t+1), a1 (g + 8, 2t..),
-// a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t..2t+1, col g), b1 (k
-// 2t + 8.., g); d0, d1 (row g, cols 2t, 2t + 1), d2, d3 (row g + 8, same).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // lrelu of two z sums, each rounded to bf16 first and the product again
 // (torch's where(z >= 0, z, slope * z) on a bf16 z), packed low-first
 __device__ __forceinline__ uint32_t lrelu_pack(float lo, float hi, float slope) {
@@ -126,8 +110,7 @@ __device__ __forceinline__ uint32_t lrelu_pack(float lo, float hi, float slope) 
     const float z = __bfloat162float(__float2bfloat16_rn(v[i]));
     v[i] = z >= 0.f ? z : __bfloat162float(__float2bfloat16_rn(slope * z));
   }
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v[0], v[1]);
-  return *reinterpret_cast<const uint32_t*>(&h);
+  return lfsr::pack_bf16(v[0], v[1]);
 }
 
 template <int C>
@@ -177,11 +160,8 @@ __global__ void __launch_bounds__(32 * kMmaWarps, 2) tail_mma_kernel(const TailP
       uint32_t a[KS][4];
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* r0 = ys + (m0 + g) * LDY + ks * 16 + 2 * t;
-        a[ks][0] = ld32(r0);
-        a[ks][1] = ld32(r0 + 8 * LDY);
-        a[ks][2] = ld32(r0 + 8);
-        a[ks][3] = ld32(r0 + 8 * LDY + 8);
+        // rows m0 + lane % 16, columns ks * 16 + (lane / 16) * 8: a0..a3
+        lfsr::ldmatrix_x4(a[ks], ys + (m0 + lane % 16) * LDY + ks * 16 + (lane / 16) * 8);
       }
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)

@@ -1,20 +1,17 @@
-// K1 / K2 / K3 — selective scan with the dt projection folded in, its
-// training forward and its adjoint.
+// K9a / K9b / K9c's selective scan, walked one recurrence per warp, and K3,
+// the adjoint of K1 / K2.
 //
-// K1 replaces lfsr_tpu/ops/pallas_scan.py::_scan_proj_kernel (the Pallas
-// kernel behind selective_scan_proj). For every (batch b, channel d):
-//   delta_t = softplus(dbc[t, :R] . Wdt[:, d] + bdt[d])
+// The selective scan, for every (batch b, channel d):
 //   h_t[n]  = exp(delta_t A[d, n]) h_{t-1}[n] + B_t[n] delta_t u_t[d]
 //   y_t[d]  = sum_n C_t[n] h_t[n] + D[d] u_t[d]
-// with dbc = [dt_low_rank | B | C], the raw x_proj output.
-//
-// K2 replaces ::_scan_proj_states_kernel: the same kernel (template flag
-// kStates), which also writes the state before every ``spacing``-th step,
-// states[b, k, n, d] = h_{k*spacing - 1}[n] (0 for k = 0), float32. Its y
-// is K1's bit for bit: the flag only adds the stores.
+// K1 and K2 (lfsr_tpu/ops/pallas_scan.py::_scan_proj_kernel and
+// ::_scan_proj_states_kernel, delta = softplus(dbc[t, :R] . Wdt[:, d] +
+// bdt[d]) from dbc = [dt_low_rank | B | C], the raw x_proj output) are the
+// chunk-parallel scan of csrc/scan_chunked.cu; this file's forward scan was
+// theirs until then and is, for now, that of K9a-K9c.
 //
 // The scans of K9b (::_scan_gated_kernel) and K9c (::_mamba_inner_kernel)
-// are the same kernel with the gate epilogue (template epilogue kEpiGate,
+// are this kernel with the gate epilogue (template epilogue kEpiGate,
 // entry lfsr_scan_gate): y_t[d] = (sum_n C_t[n] h_t[n] + D[d] u_t[d]) silu(z_t[d]),
 // stored in z's dtype. K9c takes delta from dbc as K1 does; K9b takes delta
 // as an array, before softplus or after it, and B and C as arrays. B, C and
@@ -29,7 +26,8 @@
 // u's dtype, then + D[d] u_t[d] and rounded again, the two roundings of
 // JAX's y.astype(u.dtype) before its D skip.
 //
-// K3 replaces ::_scan_proj_bwd_kernel, the reverse adjoint scan. Given dy,
+// K3 replaces ::_scan_proj_bwd_kernel, the reverse adjoint scan of K1 (the
+// states K2 saved every ``spacing`` steps seed its chunks). Given dy,
 // lambda_t = C_t dy_t + exp(delta_{t+1} A) lambda_{t+1} and it returns
 //   du_t[d]  = delta_t sum_n lambda_t B_t          (the scan's part of du)
 //   ddt_t[d] = sum_n lambda_t A exp(delta_t A) h_{t-1} + u_t sum_n lambda_t B_t
@@ -40,7 +38,8 @@
 // What bounds them on this card: the recurrence is sequential in t. At the
 // training point (B=8, Di=80, N=16, L=25600) there are 8*80*16 = 10240
 // scalar recurrences, a few warps per SM, so every kernel here is
-// latency-bound (one dependent step after another), not bandwidth-bound.
+// latency-bound (one dependent step after another), not bandwidth-bound;
+// csrc/scan_chunked.cu is the cure, still to be applied to these.
 //
 // Design: the TPU kernel carries the state across a sequential grid axis;
 // Hopper's blocks run in no order, so a warp owns whole (b, d) recurrences
@@ -71,7 +70,6 @@
 //    twin's, so dB/dC differ from it by float32 rounding only; the checks
 //    hold every K3 output to 1e-4 of its own scale max(1, max|twin|).
 // All arithmetic is float32; u, dbc, dy and y are float32 or bfloat16.
-// A chunk-parallel two-pass scan, to put more blocks in flight, is later work.
 #include "common.cuh"
 
 namespace {
@@ -87,7 +85,7 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// delta for channel dd from a staged dbc row (the same op order in K1-K3)
+// delta for channel dd from a staged dbc row (the op order of K1, K2, K3 and K9c)
 __device__ __forceinline__ float delta_of(const float* row, const float* __restrict__ wdt,
                                           const float* __restrict__ bdt, int dd, int R,
                                           int Di) {
@@ -99,18 +97,16 @@ __device__ __forceinline__ float delta_of(const float* row, const float* __restr
 }
 
 // Where the forward scan takes delta from (ScanParams::mode):
-//  kFromDbc   K1/K2/K9c: softplus(dbc[:R] . Wdt + bdt), B and C from the same dbc row
+//  kFromDbc   K9c: softplus(dbc[:R] . Wdt + bdt), B and C from the same dbc row
 //  kGivenRaw  K9b with pre_softplus: softplus(delta), B and C from their own arrays
 //  kGiven     K9b: delta as given
 enum DeltaMode : int { kFromDbc = 0, kGivenRaw = 1, kGiven = 2 };
 
 // What the forward scan stores for y_t[d], with s = sum_n C_t[n] h_t[n]:
-//  kEpiSkip   K1/K2: s + D u
 //  kEpiGate   K9b/K9c: (s + D u) silu(z)
 //  kEpiRound  K9a: round(round(s) + D u) in TY (D u left out without D)
-// A template parameter: each instance compiles its own epilogue only, and
-// K1's instructions stay as they were.
-enum Epilogue : int { kEpiSkip = 0, kEpiGate = 1, kEpiRound = 2 };
+// A template parameter: each instance compiles its own epilogue only.
+enum Epilogue : int { kEpiGate = 1, kEpiRound = 2 };
 
 // x rounded to T's precision (identity for float32)
 __device__ __forceinline__ float round_to(float x, float*) { return x; }
@@ -132,18 +128,16 @@ struct ScanParams {
   void* y;                              // [B, L, Di] (TY)
   const float* wdt; const float* bdt;   // kFromDbc: [R, Di], [Di]
   const float* A; const float* dskip;   // [Di, N], [Di] (kEpiRound: may be null)
-  float* states;                        // kStates: [B, ceil(L / spacing), N, Di]
-  int L, Di, R, spacing, mode;
+  int L, Di, R, mode;
 };
 
-// The forward scan: K1, K2 (kStates), the scan of K9b/K9c (kEpiGate, whose
-// epilogue multiplies y + u D by silu(z) before the store) and K9a
-// (kEpiRound). u, dbc, delta, B and C are TU; z and y are TY (K1, K2, K9a:
-// TY == TU). One warp walks all L
+// The forward scan: the scan of K9b/K9c (kEpiGate, whose epilogue
+// multiplies y + u D by silu(z) before the store) and K9a (kEpiRound). u,
+// dbc, delta, B and C are TU; z and y are TY (K9a: TY == TU). One warp walks all L
 // steps and issues in order, so what bounds it is the latency of each
 // step's dependent chain (shared-memory read, exp, the log2(N) shuffles of
 // the sum over n); interleaving kGroup steps overlaps kGroup such chains.
-template <typename TU, typename TY, int N, bool kStates, int kEpi>
+template <typename TU, typename TY, int N, int kEpi>
 __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   constexpr bool kGate = kEpi == kEpiGate;
   constexpr int CPW = 32 / N;  // channels per warp
@@ -175,9 +169,6 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   const size_t bl = (size_t)b * L;  // the batch row's first time step
   const TU* ub = static_cast<const TU*>(p.u) + bl * Di;
   TY* yb = static_cast<TY*>(p.y) + bl * Di;
-  float* sb = nullptr;
-  if constexpr (kStates) sb = p.states + (size_t)b * ((L + p.spacing - 1) / p.spacing) * N * Di;
-  int until = 0;  // K2: steps until the next block start
 
   for (int t0 = 0; t0 < L; t0 += kTile) {
     const int nt = min(kTile, L - t0);
@@ -243,16 +234,7 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
       }
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
-        if (tg + k < nt) {
-          if constexpr (kStates) {
-            if (until == 0) {  // the state before step t0 + tg + k starts a block
-              if (active) sb[((size_t)((t0 + tg + k) / p.spacing) * N + n) * Di + d] = h;
-              until = p.spacing;
-            }
-            --until;
-          }
-          h = fmaf(e[k], h, bx[k]);
-        }
+        if (tg + k < nt) h = fmaf(e[k], h, bx[k]);
         part[k] = c[k] * h;
       }
 #pragma unroll
@@ -419,48 +401,28 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
   out[i] = s;
 }
 
-template <typename TU, typename TY, int N, bool kStates, int kEpi>
+template <typename TU, typename TY, int N, int kEpi>
 cudaError_t launch_scan(const ScanParams& p, int B, cudaStream_t stream) {
   constexpr int CPW = 32 / N;
   const int K = p.mode == kFromDbc ? p.R + 2 * N : 2 * N;
   const size_t smem =
       sizeof(float) * (size_t)kTile * (K + (kEpi == kEpiGate ? 4 : 3) * CPW);
-  cudaError_t e = lfsr::set_smem((const void*)scan_kernel<TU, TY, N, kStates, kEpi>, smem);
+  cudaError_t e = lfsr::set_smem((const void*)scan_kernel<TU, TY, N, kEpi>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.Di + CPW - 1) / CPW, B);
-  scan_kernel<TU, TY, N, kStates, kEpi><<<grid, 32, smem, stream>>>(p);
+  scan_kernel<TU, TY, N, kEpi><<<grid, 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TU, typename TY, bool kStates, int kEpi>
+template <typename TU, typename TY, int kEpi>
 cudaError_t dispatch_n(const ScanParams& p, int B, int N, cudaStream_t s) {
   switch (N) {
-    case 4: return launch_scan<TU, TY, 4, kStates, kEpi>(p, B, s);
-    case 8: return launch_scan<TU, TY, 8, kStates, kEpi>(p, B, s);
-    case 16: return launch_scan<TU, TY, 16, kStates, kEpi>(p, B, s);
-    case 32: return launch_scan<TU, TY, 32, kStates, kEpi>(p, B, s);
+    case 4: return launch_scan<TU, TY, 4, kEpi>(p, B, s);
+    case 8: return launch_scan<TU, TY, 8, kEpi>(p, B, s);
+    case 16: return launch_scan<TU, TY, 16, kEpi>(p, B, s);
+    case 32: return launch_scan<TU, TY, 32, kEpi>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// K1 / K2: contiguous u, dbc and y of one dtype, delta from dbc
-template <bool kStates>
-cudaError_t scan_entry(const void* u, const void* dbc, const void* wdt, const void* bdt,
-                       const void* A, const void* dskip, void* y, void* states, int B, int L,
-                       int Di, int R, int N, int spacing, int dtype, void* stream) {
-  if (R < 1 || R > kMaxR || B < 1 || L < 1 || Di < 1 || spacing < 1)
-    return cudaErrorInvalidValue;
-  ScanParams p{};
-  p.u = u; p.dbc = dbc; p.y = y;
-  p.wdt = static_cast<const float*>(wdt); p.bdt = static_cast<const float*>(bdt);
-  p.A = static_cast<const float*>(A); p.dskip = static_cast<const float*>(dskip);
-  p.states = static_cast<float*>(states);
-  p.L = L; p.Di = Di; p.R = R; p.spacing = spacing; p.mode = kFromDbc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lfsr::kF32) return dispatch_n<float, float, kStates, kEpiSkip>(p, B, N, s);
-  if (dtype == lfsr::kBF16)
-    return dispatch_n<__nv_bfloat16, __nv_bfloat16, kStates, kEpiSkip>(p, B, N, s);
-  return cudaErrorInvalidValue;
 }
 
 template <typename T, int N>
@@ -510,21 +472,6 @@ cudaError_t dispatch_bwd(const void* u, const void* dbc, const void* dy, const v
 
 }  // namespace
 
-LFSR_EXPORT int lfsr_scan_proj(const void* u, const void* dbc, const void* wdt, const void* bdt,
-                               const void* A, const void* dskip, void* y, int B, int L, int Di,
-                               int R, int N, int dtype, void* stream) {
-  return scan_entry<false>(u, dbc, wdt, bdt, A, dskip, y, nullptr, B, L, Di, R, N, 1, dtype,
-                           stream);
-}
-
-LFSR_EXPORT int lfsr_scan_proj_states(const void* u, const void* dbc, const void* wdt,
-                                      const void* bdt, const void* A, const void* dskip,
-                                      void* y, void* states, int B, int L, int Di, int R,
-                                      int N, int spacing, int dtype, void* stream) {
-  return scan_entry<true>(u, dbc, wdt, bdt, A, dskip, y, states, B, L, Di, R, N, spacing,
-                          dtype, stream);
-}
-
 // The scan of K9b and K9c: y = (scan + u D) * silu(z). mode kFromDbc (K9c)
 // takes delta, B and C from dbc rows as K1 does (wdt, bdt, R read); kGivenRaw
 // and kGiven (K9b) take delta, B and C as arrays. u, dbc, delta and y are
@@ -544,15 +491,15 @@ LFSR_EXPORT int lfsr_scan_gate(const void* u, const void* dbc, const void* delta
   p.z = z; p.sz = sz; p.y = y;
   p.wdt = static_cast<const float*>(wdt); p.bdt = static_cast<const float*>(bdt);
   p.A = static_cast<const float*>(A); p.dskip = static_cast<const float*>(dskip);
-  p.L = L; p.Di = Di; p.R = R; p.spacing = 1; p.mode = mode;
+  p.L = L; p.Di = Di; p.R = R; p.mode = mode;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (u_dtype == lfsr::kF32 && g_dtype == lfsr::kF32)
-    return dispatch_n<float, float, false, kEpiGate>(p, B, N, s);
+    return dispatch_n<float, float, kEpiGate>(p, B, N, s);
   if (u_dtype == lfsr::kF32 && g_dtype == lfsr::kBF16)
-    return dispatch_n<float, bf16, false, kEpiGate>(p, B, N, s);
+    return dispatch_n<float, bf16, kEpiGate>(p, B, N, s);
   if (u_dtype == lfsr::kBF16 && g_dtype == lfsr::kBF16)
-    return dispatch_n<bf16, bf16, false, kEpiGate>(p, B, N, s);
+    return dispatch_n<bf16, bf16, kEpiGate>(p, B, N, s);
   return cudaErrorInvalidValue;
 }
 
@@ -569,11 +516,11 @@ LFSR_EXPORT int lfsr_scan_given(const void* u, const void* delta, const void* bm
   ScanParams p{};
   p.u = u; p.delta = delta; p.bm = bm; p.sbm = sbm; p.cm = cm; p.scm = scm; p.y = y;
   p.A = static_cast<const float*>(A); p.dskip = static_cast<const float*>(dskip);
-  p.L = L; p.Di = Di; p.R = 0; p.spacing = 1; p.mode = mode;
+  p.L = L; p.Di = Di; p.R = 0; p.mode = mode;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lfsr::kF32) return dispatch_n<float, float, false, kEpiRound>(p, B, N, s);
+  if (dtype == lfsr::kF32) return dispatch_n<float, float, kEpiRound>(p, B, N, s);
   if (dtype == lfsr::kBF16)
-    return dispatch_n<__nv_bfloat16, __nv_bfloat16, false, kEpiRound>(p, B, N, s);
+    return dispatch_n<__nv_bfloat16, __nv_bfloat16, kEpiRound>(p, B, N, s);
   return cudaErrorInvalidValue;
 }
 

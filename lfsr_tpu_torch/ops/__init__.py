@@ -4,7 +4,8 @@ Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
 plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
 scan's autograd Function (``scan.ScanProj``) and K4-K8, K9a-K9c and K10
 inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
-with their sources and the TPU kernels they replace.
+with their sources and the TPU kernels they replace; K8's ``PATH_LAUNCHES``
+splits its launches between its tensor-core and CUDA-core kernels.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.head import hlfr_tail
-from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
+from lfsr_tpu_torch.ops.masked_attention import PATH_LAUNCHES, masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
     mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
     selective_scan_proj_bwd, selective_scan_proj_states,
@@ -22,11 +23,11 @@ from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
 KERNELS = {
     "K1 selective_scan_proj": (
-        selective_scan_proj, "lfsr_tpu_torch/csrc/scan.cu",
+        selective_scan_proj, "lfsr_tpu_torch/csrc/scan_chunked.cu",
         "lfsr_tpu/ops/pallas_scan.py:251",
     ),
     "K2 selective_scan_proj_states": (
-        selective_scan_proj_states, "lfsr_tpu_torch/csrc/scan.cu",
+        selective_scan_proj_states, "lfsr_tpu_torch/csrc/scan_chunked.cu",
         "lfsr_tpu/ops/pallas_scan.py:1009",
     ),
     "K3 selective_scan_proj_bwd": (
@@ -73,6 +74,8 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for path in PATH_LAUNCHES:  # K8's per-kernel counts
+        PATH_LAUNCHES[path] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -39,10 +39,14 @@ _F = ctypes.c_float
 _S = ctypes.c_longlong  # a row stride or a row count
 # C signatures of the entry points (each returns a cudaError_t as int)
 _SIGNATURES = {
-    # u, dbc, wdt, bdt, A, D, y, B, L, Di, R, N, dtype, stream
-    "lfsr_scan_proj": [_P] * 7 + [_I] * 6 + [_P],
-    # u, dbc, wdt, bdt, A, D, y, states, B, L, Di, R, N, spacing, dtype, stream
-    "lfsr_scan_proj_states": [_P] * 8 + [_I] * 7 + [_P],
+    # K1/K2's passes. u, dbc, wdt, bdt, A, hloc, dsum, B, L, Di, R, N, Tc,
+    # dtype, stream
+    "lfsr_chunk_scan_summaries": [_P] * 7 + [_I] * 7 + [_P],
+    # A, hloc, dsum, B, Di, N, chunks, stream
+    "lfsr_chunk_scan_carry": [_P] * 3 + [_I] * 4 + [_P],
+    # u, dbc, wdt, bdt, A, D, hloc, y, states, B, L, Di, R, N, Tc, spacing,
+    # dtype, stream
+    "lfsr_chunk_scan_outputs": [_P] * 9 + [_I] * 8 + [_P],
     # u, dbc, dy, wdt, bdt, A, states, du, ddt, dB, dC, dA, part_b, part_c,
     # B, L, Di, R, N, spacing, dtype, stream
     "lfsr_scan_proj_bwd": [_P] * 14 + [_I] * 7 + [_P],
@@ -65,6 +69,8 @@ _SIGNATURES = {
     "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
     # q, k, v, mask transposed, o, B, L, D, heads, qscale, dtype, stream
     "lfsr_masked_mha": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, mask (row-major), o, B, L, D, heads, qscale, stream
+    "lfsr_masked_mha_mma": [_P] * 5 + [_I] * 4 + [_F, _P],
     # u, delta, B, sB, C, sC, y, A, D (or null), B, L, Di, N, mode, dtype, stream
     "lfsr_scan_given": [_P, _P] + [_P, _S] * 2 + [_P] * 3 + [_I] * 6 + [_P],
     # y, w1, w36, bias, out, B, H, W, C, Cz, slope, dtype, stream

@@ -16,6 +16,9 @@ alone. Otherwise it is the autograd Function :class:`ScanProj`: forward K2,
 which also saves the state at every ``STATE_SPACING``-th step, and backward
 K3, the reverse adjoint scan seeded from those states, followed by the
 dt-projection chain in PyTorch (``_sp_bwd``, pallas_scan.py:340-377).
+K1 and K2 run the chunk-parallel scan of csrc/scan_chunked.cu
+(:func:`chunk_scan_passes`: chunk summaries, a carry over the chunks,
+chunk outputs) with the chunk length of :func:`scan_chunk_len`.
 
 The flagship's opt-in ``scan_impl``s (lfsr_tpu/models/ssm.py:99-153) have
 their own kernels: :func:`scan_gated_fused` (K9b, ``'gated'``:
@@ -33,12 +36,13 @@ checkpointed) when ``L % 256 == 0 and L > 4096``, which every L of the
 flagship's paths meets (tiled, whole-scene, training), else over the whole
 sequence at once.
 
-Each kernel wrapper launches its kernel (csrc/scan.cu, csrc/mamba_inner.cu)
-on a CUDA tensor and runs its plain twin on a CPU tensor. The kernels take
-any L: the TPU's pad-to-a-multiple-of-128 (ssm.py:109-113) and the
-``L % 128 == 0`` gate of ``'fused'`` (ssm.py:144) are Pallas tiling
-constraints with no counterpart here (off that gate JAX runs
-``mamba_inner_ref``, the same function: tests/test_pallas_scan.py:153-178).
+Each kernel wrapper launches its kernel (csrc/scan_chunked.cu, csrc/scan.cu,
+csrc/mamba_inner.cu) on a CUDA tensor and runs its plain twin on a CPU
+tensor. The kernels take any L: the TPU's pad-to-a-multiple-of-128
+(ssm.py:109-113) and the ``L % 128 == 0`` gate of ``'fused'``
+(ssm.py:144) are Pallas tiling constraints with no counterpart here (off
+that gate JAX runs ``mamba_inner_ref``, the same function:
+tests/test_pallas_scan.py:153-178).
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ from lfsr_tpu_torch.ops.selective_scan import (
 
 # steps between saved states (K2) == the adjoint kernel's chunk (K3)
 STATE_SPACING = 64
+# K1/K2's chunk-parallel scan (csrc/scan_chunked.cu): chunks short enough
+# that B x L / Tc reaches SCAN_CTAS, in multiples of STATE_SPACING
+SCAN_CTAS = 4096
 # the twins scan chunk by chunk at L % SCAN_CHUNK == 0 and L > CHUNKED_ABOVE,
 # as the JAX references do (pallas_scan.py:281-283, 472-475, 720-723)
 SCAN_CHUNK, CHUNKED_ABOVE = 256, 4096
@@ -126,19 +133,58 @@ def selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip):
     return scan_ref(u, delta, A, Bc, Cc, D_skip)
 
 
+def scan_chunk_len(B: int, L: int, spacing: int = STATE_SPACING) -> int:
+    """Steps per chunk of K1/K2's chunk-parallel scan at batch B and length
+    L: the longest multiple of ``spacing`` (K2's saved states fall on chunk
+    starts) with B L / Tc >= :data:`SCAN_CTAS`, at least ``spacing``. K1 and
+    K2 both call it, so at the same (B, L) they run the same chunks and K2's
+    y is K1's bit for bit."""
+    return spacing * max(1, B * L // (SCAN_CTAS * spacing))
+
+
+def chunk_scan_passes(u, dbc, Wdt, bdt, A, D_skip, y, states=None, spacing=STATE_SPACING):
+    """The launches of K1 (``states`` None) or K2 on checked CUDA operands,
+    as [(pass name, thunk)] in order: "summaries", "carry" (both only when
+    L spans more than one chunk) and "outputs", which writes y (and
+    ``states``), with chunks of :func:`scan_chunk_len` steps. The scratch
+    (end states and delta sums of every chunk but the last, float32) comes
+    from PyTorch's allocator. The thunks count no launch."""
+    B, L, Di = u.shape
+    R, N = Wdt.shape[0], A.shape[1]
+    code = _cuda.DTYPE_CODES[u.dtype]
+    tc = scan_chunk_len(B, L, spacing)
+    nc = -(-L // tc)
+    stream = _cuda.stream_of(u)
+    common = (u.data_ptr(), dbc.data_ptr(), Wdt.data_ptr(), bdt.data_ptr(), A.data_ptr())
+    hloc = dsum = None
+    passes = []
+    if nc > 1:
+        f32 = dict(dtype=torch.float32, device=u.device)
+        hloc = torch.empty((B, nc - 1, N, Di), **f32)
+        dsum = torch.empty((B, nc - 1, Di), **f32)
+        passes += [
+            ("summaries", lambda: _cuda.launch(
+                "lfsr_chunk_scan_summaries", *common, hloc.data_ptr(), dsum.data_ptr(), B, L, Di,
+                R, N, tc, code, stream)),
+            ("carry", lambda: _cuda.launch(
+                "lfsr_chunk_scan_carry", A.data_ptr(), hloc.data_ptr(), dsum.data_ptr(), B, Di, N,
+                nc - 1, stream)),
+        ]
+    passes.append(("outputs", lambda: _cuda.launch(
+        "lfsr_chunk_scan_outputs", *common, D_skip.data_ptr(),
+        None if hloc is None else hloc.data_ptr(), y.data_ptr(),
+        None if states is None else states.data_ptr(), B, L, Di, R, N, tc, spacing, code, stream)))
+    return passes
+
+
 def _scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     """K1: kernel on CUDA tensors, plain twin on CPU tensors."""
     if _cuda.use_plain(u):
         return selective_scan_proj_plain(u, dbc, Wdt, bdt, A, D_skip)
-    code = _check_scan(u, dbc, Wdt, bdt, A, D_skip)
-    B, L, Di = u.shape
-    R, N = Wdt.shape[0], A.shape[1]
+    _check_scan(u, dbc, Wdt, bdt, A, D_skip)
     y = torch.empty_like(u)
-    _cuda.launch(
-        "lfsr_scan_proj", u.data_ptr(), dbc.data_ptr(), Wdt.data_ptr(), bdt.data_ptr(),
-        A.data_ptr(), D_skip.data_ptr(), y.data_ptr(), B, L, Di, R, N, code,
-        _cuda.stream_of(u),
-    )
+    for _, launch in chunk_scan_passes(u, dbc, Wdt, bdt, A, D_skip, y):
+        launch()
     selective_scan_proj.launches += 1
     return y
 
@@ -167,16 +213,13 @@ def selective_scan_proj_states(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_SPACIN
     (y, states) as :func:`selective_scan_proj_states_plain`; y is K1's."""
     if _cuda.use_plain(u):
         return selective_scan_proj_states_plain(u, dbc, Wdt, bdt, A, D_skip, spacing)
-    code = _check_scan(u, dbc, Wdt, bdt, A, D_skip)
+    _check_scan(u, dbc, Wdt, bdt, A, D_skip)
     B, L, Di = u.shape
-    R, N = Wdt.shape[0], A.shape[1]
+    N = A.shape[1]
     y = torch.empty_like(u)
     states = torch.empty((B, -(-L // spacing), N, Di), dtype=torch.float32, device=u.device)
-    _cuda.launch(
-        "lfsr_scan_proj_states", u.data_ptr(), dbc.data_ptr(), Wdt.data_ptr(),
-        bdt.data_ptr(), A.data_ptr(), D_skip.data_ptr(), y.data_ptr(), states.data_ptr(),
-        B, L, Di, R, N, spacing, code, _cuda.stream_of(u),
-    )
+    for _, launch in chunk_scan_passes(u, dbc, Wdt, bdt, A, D_skip, y, states, spacing):
+        launch()
     selective_scan_proj_states.launches += 1
     return y, states
 

@@ -14,7 +14,10 @@ the gradients of the autograd Functions (the scan's K2 + K3, and the
 PlainVJPs of K4-K8, K9a and K10) on the kernels vs on the twins, a block at
 K7's gate and a block under each of ``scan_impl='gated'``/``'fused'`` on
 the kernels vs on the plain twins, the small flagship (K10 once) and a
-one-block EPIT on CUDA vs on the CPU.
+one-block EPIT on CUDA vs on the CPU. K1 and K2 (the chunk-parallel scan)
+at lengths around their chunk length, K8's tensor-core kernel at several
+lengths and head dims with band and random -inf masks, and which K8 kernel
+each dtype and head dim takes.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -303,3 +306,113 @@ def test_one_block_epit_on_cuda_matches_cpu(cuda, dtype, tol):
     assert masked_attention.masked_mha_fused.launches == before + 2  # both EPI passes, on CUDA
     err, scale = _cuda.twin_error(outs[1], outs[0])
     assert err <= tol * scale, err
+
+
+# ---- K1 / K2: the chunk-parallel scan around its chunk boundaries ----------
+
+def _scan_operands(g, dtype, B, L, N, Di=80, R=4):
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(Di, 1).cuda()
+    return (_rn(g, B, L, Di, s=0.5, dtype=dtype), _rn(g, B, L, R + 2 * N, s=0.5, dtype=dtype),
+            _rn(g, R, Di, s=0.3), _rn(g, Di, s=0.1), A, 1 + _rn(g, Di, s=0.1))
+
+
+def _scan_length(B, which):
+    """L for the case ``which``: a number, or one relative to the chunk
+    length Tc the scan takes at (B, 25600)."""
+    tc = scan.scan_chunk_len(B, 25600)
+    return {"Tc-1": tc - 1, "Tc": tc, "Tc+1": tc + 1, "3Tc+17": 3 * tc + 17}.get(which, which)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, "Tc-1", "Tc", "Tc+1", "3Tc+17", 25600])
+def test_k1_k2_chunked_match_twins_and_each_other(cuda, L, B, N, dtype):
+    """K1 and K2 against their twins (y, and K2's states, each to its own
+    scale), and K2's y equal to K1's bit for bit."""
+    L = _scan_length(B, L)
+    args = _scan_operands(torch.Generator().manual_seed(9), dtype, B, L, N)
+    before = (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches)
+    y1 = scan.selective_scan_proj(*args)
+    y2, states = scan.selective_scan_proj_states(*args)
+    torch.cuda.synchronize()
+    assert (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(y1, y2)
+    want_y, want_states = scan.selective_scan_proj_states_plain(*args)
+    for got, want in ((y1, want_y), (states, want_states)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err, scale = _cuda.twin_error(got, want)
+        assert err <= TOL[got.dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Di,R", [(37, 3), (300, 5)])
+@pytest.mark.parametrize("L", [65, "3Tc+17"])
+def test_k1_k2_chunked_at_odd_widths(cuda, L, Di, R, dtype):
+    """K1 and K2 where a staged u row is not whole 16-byte granules (37
+    channels) or the channels take two CTAs, the second part-filled (300
+    at 2 lanes each), with an odd dbc row: against their twins, and K2's y
+    equal to K1's bit for bit."""
+    L = _scan_length(3, L)
+    args = _scan_operands(torch.Generator().manual_seed(10), dtype, 3, L, 16, Di, R)
+    y1 = scan.selective_scan_proj(*args)
+    y2, states = scan.selective_scan_proj_states(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    for got, want in zip((y1, states), scan.selective_scan_proj_states_plain(*args)):
+        err, scale = _cuda.twin_error(got, want)
+        assert err <= TOL[got.dtype] * scale, err
+
+
+# ---- K8: the tensor-core kernel and the dispatch ---------------------------
+
+def _k8_mask(g, L, kind):
+    """EPIT's band mask where L = 5 h, else an 11-wide band; or ("random")
+    -inf at ~30% of the entries and small values elsewhere, the diagonal
+    kept, and row 1 -inf everywhere (its output is NaN, as the twin's)."""
+    if kind == "band":
+        if L % 5 == 0:
+            return band_mask(5, L // 5, 10, 11, torch.device("cuda"))
+        i = torch.arange(L)
+        return torch.where((i[None] - i[:, None]).abs() <= 5, 0.0, float("-inf")).cuda()
+    m = torch.randn(L, L, generator=g) * 0.5
+    m = torch.where(torch.rand(L, L, generator=g) < 0.3, float("-inf"), m)
+    m.fill_diagonal_(0.0)
+    m[1] = float("-inf")
+    return m.cuda()
+
+
+@pytest.mark.parametrize("kind", ["band", "random"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("L", [8, 40, 72, 160, 168])
+def test_k8_tensor_core_kernel_matches_plain_twin(cuda, L, hd, kind):
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (_rn(g, 6, L, 128, dtype=torch.bfloat16) for _ in range(3))
+    mask, heads = _k8_mask(g, L, kind), 128 // hd
+    assert masked_attention.kernel_path(torch.bfloat16, hd) == "mma"
+    before = dict(masked_attention.PATH_LAUNCHES)
+    got = masked_attention.masked_mha_fused(q, k, v, mask, heads)
+    torch.cuda.synchronize()
+    assert masked_attention.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    want = masked_attention.masked_mha_plain(q, k, v, mask, heads)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert nan.any() == (kind == "random")
+    err, scale = _cuda.twin_error(got[~nan], want[~nan])
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.float32, 64),
+                                      (torch.bfloat16, 8)])
+def test_k8_float32_and_head_dim_8_take_the_cuda_core_kernel(cuda, dtype, hd):
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (_rn(g, 4, 40, 128, dtype=dtype) for _ in range(3))
+    mask = _k8_mask(g, 40, "band")
+    assert masked_attention.kernel_path(dtype, hd) == "fma"
+    before = dict(masked_attention.PATH_LAUNCHES)
+    got = masked_attention.masked_mha_fused(q, k, v, mask, 128 // hd)
+    torch.cuda.synchronize()
+    assert masked_attention.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    err, scale = _cuda.twin_error(got, masked_attention.masked_mha_plain(q, k, v, mask, 128 // hd))
+    assert err <= TOL[dtype] * scale, err

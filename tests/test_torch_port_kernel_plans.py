@@ -1,0 +1,113 @@
+"""How the port's wrappers plan their kernel launches, without a card.
+
+K1 and K2 run the chunk-parallel scan of csrc/scan_chunked.cu with the
+chunk length of ``ops/scan.scan_chunk_len``; K8 runs its tensor-core kernel
+for bfloat16 with a head dim of 16, 32 or 64 and its CUDA-core kernel
+otherwise. The kernels themselves run only on the card
+(tests/test_torch_port_cuda.py); here ``_cuda``'s device checks and its
+``launch`` are replaced by recorders, so the wrappers' planning runs on CPU
+tensors and the tests read what they would launch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lfsr_tpu_torch.ops import _cuda, masked_attention as ma, scan
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The wrappers take their kernel path on CPU tensors and every launch
+    is recorded as (entry point, args) instead of run."""
+    calls = []
+    monkeypatch.setattr(_cuda, "use_plain", lambda t: False)
+    monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
+    monkeypatch.setattr(_cuda, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_cuda, "launch", lambda name, *args: calls.append((name, args)))
+    return calls
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 63), (3, 65), (2, 25600), (8, 25600),
+                                 (4, 518400), (4, 563200), (1, 10**7)])
+def test_chunk_length_is_a_multiple_of_the_spacing_and_fills_the_card(B, L):
+    tc = scan.scan_chunk_len(B, L)
+    chunks = -(-L // tc)
+    assert tc % scan.STATE_SPACING == 0 and tc >= scan.STATE_SPACING and chunks >= 1
+    # the longest such chunk with B L / Tc >= SCAN_CTAS (batch row, chunk) pairs
+    assert tc == scan.STATE_SPACING or B * L / tc >= scan.SCAN_CTAS
+    assert B * L / (tc + scan.STATE_SPACING) < scan.SCAN_CTAS
+
+
+def _scan_args(B, L, N=16, Di=80, R=4, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(Di, 1)
+    return (torch.randn(B, L, Di, generator=g).to(dtype),
+            torch.randn(B, L, R + 2 * N, generator=g).to(dtype), torch.randn(R, Di, generator=g),
+            torch.randn(Di, generator=g), A, torch.ones(Di))
+
+
+@pytest.mark.parametrize("B,L", [(1, 40), (2, 25600), (4, 518400 // 16)])
+def test_k1_and_k2_launch_the_same_passes_and_chunks(launches, B, L):
+    """Both wrappers take the three passes with the same Tc (K2's y is
+    K1's bit for bit on the card); one chunk needs only the outputs pass.
+    Arguments: summaries (..., N, Tc, dtype, stream), outputs (..., N, Tc,
+    spacing, dtype, stream)."""
+    args = _scan_args(B, L)
+    tc = scan.scan_chunk_len(B, L)
+    before = (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches)
+    with torch.no_grad():
+        scan.selective_scan_proj(*args)
+        k1 = list(launches)
+        launches.clear()
+        scan.selective_scan_proj_states(*args)
+        k2 = list(launches)
+    assert (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches) == (
+        before[0] + 1, before[1] + 1)
+    names = ["lfsr_chunk_scan_outputs"]
+    if L > tc:
+        names = ["lfsr_chunk_scan_summaries", "lfsr_chunk_scan_carry", *names]
+    assert [n for n, _ in k1] == [n for n, _ in k2] == names
+    for (name, a1), (_, a2) in zip(k1, k2):
+        if name == "lfsr_chunk_scan_outputs":
+            assert a1[-5:-2] == a2[-5:-2] == (16, tc, scan.STATE_SPACING)
+            assert a1[8] is None and a2[8] is not None  # K2 only writes states
+        elif name == "lfsr_chunk_scan_summaries":
+            assert a1[-4:-2] == a2[-4:-2] == (16, tc)
+        else:  # the carry walks the summaries of all chunks but the last
+            assert a1[-2] == a2[-2] == -(-L // tc) - 1
+
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 8, "fma"), (torch.float32, 16, "fma"),
+    (torch.float32, 32, "fma"), (torch.float32, 64, "fma")])
+def test_k8_path_by_dtype_and_head_dim(launches, dtype, hd, path):
+    """bfloat16 with hd 16/32/64: the tensor-core entry with the mask as
+    given (row-major); float32 or hd 8: the CUDA-core entry with the mask
+    transposed. ``PATH_LAUNCHES`` counts the one taken."""
+    assert ma.kernel_path(dtype, hd) == path
+    g = torch.Generator().manual_seed(1)
+    L, D = 40, 128
+    q, k, v = (torch.randn(2, L, D, generator=g).to(dtype) for _ in range(3))
+    mask = torch.randn(L, L, generator=g)
+    before = dict(ma.PATH_LAUNCHES)
+    ma.masked_mha_fused(q, k, v, mask, D // hd)
+    ((name, args),) = launches
+    assert ma.PATH_LAUNCHES[path] == before[path] + 1
+    assert sum(ma.PATH_LAUNCHES.values()) == sum(before.values()) + 1
+    assert name == {"mma": "lfsr_masked_mha_mma", "fma": "lfsr_masked_mha"}[path]
+    assert args[5:9] == (2, L, D, D // hd)
+    assert args[9] == pytest.approx(hd**-0.5)
+    if path == "mma":
+        assert args[3] == mask.data_ptr()
+    else:
+        assert args[3] != mask.data_ptr() and args[10] == _cuda.DTYPE_CODES[dtype]
+
+
+def test_k8_refuses_what_neither_kernel_takes(launches):
+    q = torch.zeros(2, 40, 120, dtype=torch.bfloat16)  # hd 15
+    with pytest.raises(ValueError, match="head dim"):
+        ma.masked_mha_fused(q, q, q, torch.zeros(40, 40), 8)
+    assert not launches
+    np.testing.assert_equal(ma.MMA_HEAD_DIMS, (16, 32, 64))

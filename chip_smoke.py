@@ -37,7 +37,9 @@ Phases (any failure exits non-zero):
    took each call (bf16: the tensor-core one; float32: the CUDA-core one).
    K1 (bf16) also logs its chunk length Tc and the time of each of its
    three passes at the tiled, Synth and Real shapes (K1 and K2 run the
-   chunk-parallel scan). Each kernel's bound: the larger of
+   chunk-parallel scan); K3 (f32 and bf16) its chunk count and the time of
+   each of its passes (summaries, carry, adjoint, sum of dA: the
+   chunk-parallel reverse scan). Each kernel's bound: the larger of
    its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its operations over the peak rate for their type (matrix products of
    bf16 operands 989 TFLOP/s, float32 and all other arithmetic 67 TFLOP/s).
@@ -395,6 +397,24 @@ def k1_passes(args, where: str) -> None:
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" ({CARD})")
 
 
+def k3_passes(args, where: str) -> None:
+    """K3's chunk-parallel reverse scan at ``args``: its chunk count and the
+    time of each pass (the wrapper's launches, not counted)."""
+    from lfsr_tpu_torch.ops import scan
+
+    u, A = args[0], args[5]
+    B, L, Di = u.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    outs = (torch.empty(B, L, Di, **f32), torch.empty(B, L, Di, **f32),
+            torch.empty(B, L, N, **f32), torch.empty(B, L, N, **f32), torch.empty(B, N, Di, **f32))
+    passes = scan.adjoint_passes(*args, outs)
+    times = {name: time_ms(launch, 10, 2) for name, launch in passes}
+    log(f"[kernels] K3 {str(u.dtype)[6:]} {where} passes: chunk {scan.STATE_SPACING} "
+        f"({-(-L // scan.STATE_SPACING)} chunks x B {B}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" ({CARD})")
+
+
 def check_kernels(results: dict, only=None) -> None:
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
@@ -437,6 +457,8 @@ def check_kernels(results: dict, only=None) -> None:
                     f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})")
             if name == "K1" and dtype == torch.bfloat16:
                 k1_passes(args, where)
+            if name == "K3":
+                k3_passes(args, where)
             if name == "K2":  # the training forward's y is K1's, bit for bit
                 same = torch.equal(got[0], scan.selective_scan_proj(*args))
                 log(f"[kernels] K2 {str(dtype)[6:]:8s} y == K1 y bit for bit: {same}")

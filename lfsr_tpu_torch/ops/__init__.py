@@ -31,7 +31,7 @@ KERNELS = {
         "lfsr_tpu/ops/pallas_scan.py:1009",
     ),
     "K3 selective_scan_proj_bwd": (
-        selective_scan_proj_bwd, "lfsr_tpu_torch/csrc/scan.cu",
+        selective_scan_proj_bwd, "lfsr_tpu_torch/csrc/scan_adjoint.cu",
         "lfsr_tpu/ops/pallas_scan.py:1135",
     ),
     "K4 cross_scan_gather": (

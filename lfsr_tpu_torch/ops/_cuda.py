@@ -47,9 +47,14 @@ _SIGNATURES = {
     # u, dbc, wdt, bdt, A, D, hloc, y, states, B, L, Di, R, N, Tc, spacing,
     # dtype, stream
     "lfsr_chunk_scan_outputs": [_P] * 9 + [_I] * 8 + [_P],
-    # u, dbc, dy, wdt, bdt, A, states, du, ddt, dB, dC, dA, part_b, part_c,
-    # B, L, Di, R, N, spacing, dtype, stream
-    "lfsr_scan_proj_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    # K3's passes. dbc, dy, wdt, bdt, A, mloc, dsum, B, L, Di, R, N, spacing,
+    # dtype, stream
+    "lfsr_scan_adjoint_summaries": [_P] * 7 + [_I] * 7 + [_P],
+    # u, dbc, dy, wdt, bdt, A, states, mloc, du, ddt, dB, dC, dA_chunks, B, L,
+    # Di, R, N, spacing, dtype, stream
+    "lfsr_scan_adjoint": [_P] * 13 + [_I] * 7 + [_P],
+    # part, out, B, parts, inner, stream
+    "lfsr_sum_parts": [_P] * 2 + [_I] * 3 + [_P],
     # u, dbc, delta, B, sB, C, sC, z, sz, y, wdt, bdt, A, D,
     # B, L, Di, R, N, mode, u dtype, gate dtype, stream
     "lfsr_scan_gate": [_P] * 3 + [_P, _S] * 3 + [_P] * 5 + [_I] * 8 + [_P],
@@ -150,9 +155,6 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.lfsr_error_string.argtypes = [ctypes.c_int]
         handle.lfsr_error_string.restype = ctypes.c_char_p
-        # Di, N -> blocks along Di of the adjoint kernel (its scratch's axis 1)
-        handle.lfsr_scan_bwd_parts.argtypes = [_I, _I]
-        handle.lfsr_scan_bwd_parts.restype = ctypes.c_int
         _lib = handle
     return _lib
 

@@ -18,7 +18,10 @@ K3, the reverse adjoint scan seeded from those states, followed by the
 dt-projection chain in PyTorch (``_sp_bwd``, pallas_scan.py:340-377).
 K1 and K2 run the chunk-parallel scan of csrc/scan_chunked.cu
 (:func:`chunk_scan_passes`: chunk summaries, a carry over the chunks,
-chunk outputs) with the chunk length of :func:`scan_chunk_len`.
+chunk outputs) with the chunk length of :func:`scan_chunk_len`; K3 the
+chunk-parallel reverse scan of csrc/scan_adjoint.cu
+(:func:`adjoint_passes`: the same three passes run backwards over chunks
+of ``STATE_SPACING`` steps, then a sum of the chunks' dA).
 
 The flagship's opt-in ``scan_impl``s (lfsr_tpu/models/ssm.py:99-153) have
 their own kernels: :func:`scan_gated_fused` (K9b, ``'gated'``:
@@ -36,12 +39,12 @@ checkpointed) when ``L % 256 == 0 and L > 4096``, which every L of the
 flagship's paths meets (tiled, whole-scene, training), else over the whole
 sequence at once.
 
-Each kernel wrapper launches its kernel (csrc/scan_chunked.cu, csrc/scan.cu,
-csrc/mamba_inner.cu) on a CUDA tensor and runs its plain twin on a CPU
-tensor. The kernels take any L: the TPU's pad-to-a-multiple-of-128
-(ssm.py:109-113) and the ``L % 128 == 0`` gate of ``'fused'``
-(ssm.py:144) are Pallas tiling constraints with no counterpart here (off
-that gate JAX runs ``mamba_inner_ref``, the same function:
+Each kernel wrapper launches its kernel (csrc/scan_chunked.cu,
+csrc/scan_adjoint.cu, csrc/scan.cu, csrc/mamba_inner.cu) on a CUDA tensor
+and runs its plain twin on a CPU tensor. The kernels take any L: the TPU's
+pad-to-a-multiple-of-128 (ssm.py:109-113) and the ``L % 128 == 0`` gate of
+``'fused'`` (ssm.py:144) are Pallas tiling constraints with no counterpart
+here (off that gate JAX runs ``mamba_inner_ref``, the same function:
 tests/test_pallas_scan.py:153-178).
 """
 
@@ -55,7 +58,7 @@ from lfsr_tpu_torch.ops.selective_scan import (
     readout, scan_states, selective_scan, selective_scan_chunked,
 )
 
-# steps between saved states (K2) == the adjoint kernel's chunk (K3)
+# steps between saved states (K2) == the adjoint's chunk length (K3)
 STATE_SPACING = 64
 # K1/K2's chunk-parallel scan (csrc/scan_chunked.cu): chunks short enough
 # that B x L / Tc reaches SCAN_CTAS, in multiples of STATE_SPACING
@@ -242,9 +245,57 @@ def selective_scan_proj_bwd_plain(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE
                   for t in (u[i : i + 1], delta, Bc, Cc, A)]
         with torch.enable_grad():
             y = selective_scan(*leaves[:2], leaves[4], *leaves[2:4])
-            du, ddt, dB, dC, dA = torch.autograd.grad(y, leaves, dy[i : i + 1].to(f32))
+            # at L = 1, y does not depend on A: its gradient is zero
+            du, ddt, dB, dC, dA = torch.autograd.grad(
+                y, leaves, dy[i : i + 1].to(f32), allow_unused=True, materialize_grads=True)
         rows.append((du, ddt, dB, dC, dA.t()[None]))
     return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def adjoint_passes(u, dbc, dy, Wdt, bdt, A, states, outs, spacing=STATE_SPACING):
+    """The launches of K3 (csrc/scan_adjoint.cu) on checked CUDA operands,
+    as [(pass name, thunk)] in order, with chunks of ``spacing`` steps (the
+    spacing of K2's states): "adjoint summaries" (each chunk's walk back
+    from a zero carry, at reversed chunk indices) and "carry" (K1's carry,
+    csrc/scan_chunked.cu, over those summaries), both only when L spans
+    more than one chunk; "adjoint", which writes du, ddt, dB and dC of
+    ``outs`` = (du, ddt, dB, dC, dA) and each chunk's dA; and "sum dA",
+    which sums those in chunk order (with one chunk the adjoint writes dA
+    itself). The scratch (float32: the summaries [B, nc-1, N, Di] and
+    [B, nc-1, Di], the chunks' dA [B, nc, N, Di]) comes from PyTorch's
+    allocator. The thunks count no launch."""
+    B, L, Di = u.shape
+    R, N = Wdt.shape[0], A.shape[1]
+    code = _cuda.DTYPE_CODES[u.dtype]
+    nc = -(-L // spacing)
+    stream = _cuda.stream_of(u)
+    du, ddt, dB, dC, dA = outs
+    weights = (Wdt.data_ptr(), bdt.data_ptr(), A.data_ptr())
+    mloc = None
+    dA_chunks = dA
+    passes = []
+    if nc > 1:
+        f32 = dict(dtype=torch.float32, device=u.device)
+        mloc = torch.empty((B, nc - 1, N, Di), **f32)
+        dsum = torch.empty((B, nc - 1, Di), **f32)
+        dA_chunks = torch.empty((B, nc, N, Di), **f32)
+        passes += [
+            ("adjoint summaries", lambda: _cuda.launch(
+                "lfsr_scan_adjoint_summaries", dbc.data_ptr(), dy.data_ptr(), *weights,
+                mloc.data_ptr(), dsum.data_ptr(), B, L, Di, R, N, spacing, code, stream)),
+            ("carry", lambda: _cuda.launch(
+                "lfsr_chunk_scan_carry", A.data_ptr(), mloc.data_ptr(), dsum.data_ptr(), B, Di,
+                N, nc - 1, stream)),
+        ]
+    passes.append(("adjoint", lambda: _cuda.launch(
+        "lfsr_scan_adjoint", u.data_ptr(), dbc.data_ptr(), dy.data_ptr(), *weights,
+        states.data_ptr(), None if mloc is None else mloc.data_ptr(), du.data_ptr(),
+        ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA_chunks.data_ptr(), B, L, Di, R, N,
+        spacing, code, stream)))
+    if nc > 1:
+        passes.append(("sum dA", lambda: _cuda.launch(
+            "lfsr_sum_parts", dA_chunks.data_ptr(), dA.data_ptr(), B, nc, N * Di, stream)))
+    return passes
 
 
 @_cuda.counted
@@ -253,28 +304,22 @@ def selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACI
     the compute dtype; states from K2 at the same ``spacing``."""
     if _cuda.use_plain(u):
         return selective_scan_proj_bwd_plain(u, dbc, dy, Wdt, bdt, A, states, spacing)
-    code = _check_scan(u, dbc, Wdt, bdt, A)
+    _check_scan(u, dbc, Wdt, bdt, A)
     B, L, Di = u.shape
-    R, N = Wdt.shape[0], A.shape[1]
+    N = A.shape[1]
     if spacing != STATE_SPACING:
         raise ValueError(f"the adjoint kernel takes states every {STATE_SPACING} steps, "
                          f"got {spacing}")
     _cuda.check(dy, "dy", (B, L, Di), u.dtype, u.device)
     _cuda.check(states, "states", (B, -(-L // spacing), N, Di), torch.float32, u.device)
     f32 = dict(dtype=torch.float32, device=u.device)
-    du, ddt = torch.empty((B, L, Di), **f32), torch.empty((B, L, Di), **f32)
-    dB, dC = torch.empty((B, L, N), **f32), torch.empty((B, L, N), **f32)
-    dA = torch.empty((B, N, Di), **f32)
-    parts = _cuda.lib().lfsr_scan_bwd_parts(Di, N)
-    part_b, part_c = torch.empty((2, B, parts, L, N), **f32)
-    _cuda.launch(
-        "lfsr_scan_proj_bwd", u.data_ptr(), dbc.data_ptr(), dy.data_ptr(), Wdt.data_ptr(),
-        bdt.data_ptr(), A.data_ptr(), states.data_ptr(), du.data_ptr(), ddt.data_ptr(),
-        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
-        B, L, Di, R, N, spacing, code, _cuda.stream_of(u),
-    )
+    outs = (torch.empty((B, L, Di), **f32), torch.empty((B, L, Di), **f32),
+            torch.empty((B, L, N), **f32), torch.empty((B, L, N), **f32),
+            torch.empty((B, N, Di), **f32))
+    for _, launch in adjoint_passes(u, dbc, dy, Wdt, bdt, A, states, outs, spacing):
+        launch()
     selective_scan_proj_bwd.launches += 1
-    return du, ddt, dB, dC, dA
+    return outs
 
 
 # --------------------------------------------------------------------------

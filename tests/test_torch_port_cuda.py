@@ -15,9 +15,10 @@ PlainVJPs of K4-K8, K9a and K10) on the kernels vs on the twins, a block at
 K7's gate and a block under each of ``scan_impl='gated'``/``'fused'`` on
 the kernels vs on the plain twins, the small flagship (K10 once) and a
 one-block EPIT on CUDA vs on the CPU. K1 and K2 (the chunk-parallel scan)
-at lengths around their chunk length, K8's tensor-core kernel at several
-lengths and head dims with band and random -inf masks, and which K8 kernel
-each dtype and head dim takes.
+at lengths around their chunk length, K3 (the chunk-parallel reverse scan)
+around its chunk of 64 steps and at odd widths, two of its calls bit-equal,
+K8's tensor-core kernel at several lengths and head dims with band and
+random -inf masks, and which K8 kernel each dtype and head dim takes.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -363,6 +364,59 @@ def test_k1_k2_chunked_at_odd_widths(cuda, L, Di, R, dtype):
     for got, want in zip((y1, states), scan.selective_scan_proj_states_plain(*args)):
         err, scale = _cuda.twin_error(got, want)
         assert err <= TOL[got.dtype] * scale, err
+
+
+# ---- K3: the chunk-parallel reverse scan around its chunk boundaries -------
+
+def _k3_operands(g, dtype, B, L, N, Di=80, R=4):
+    """K3's operands: the scan's, a cotangent dy, and K2's saved states."""
+    u, dbc, Wdt, bdt, A, D = _scan_operands(g, dtype, B, L, N, Di, R)
+    states = scan.selective_scan_proj_states(u, dbc, Wdt, bdt, A, D)[1]
+    return u, dbc, _rn(g, B, L, Di, dtype=dtype), Wdt, bdt, A, states
+
+
+def _check_k3(args):
+    before = scan.selective_scan_proj_bwd.launches
+    got = scan.selective_scan_proj_bwd(*args)
+    torch.cuda.synchronize()
+    assert scan.selective_scan_proj_bwd.launches == before + 1
+    for a, b in zip(got, scan.selective_scan_proj_bwd_plain(*args)):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        err, scale = _cuda.twin_error(a, b)
+        assert err <= 1e-4 * scale, err
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 975, 4161])
+def test_k3_chunked_matches_twin(cuda, L, B, N, dtype):
+    """K3 (summaries, carry, adjoint, sum of dA; the adjoint alone at
+    L <= 64) against its twin, each of its five float32 outputs to 1e-4 of
+    its own scale, at lengths around its chunk of 64 steps."""
+    _check_k3(_k3_operands(torch.Generator().manual_seed(11), dtype, B, L, N))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [4, 16, 32])
+@pytest.mark.parametrize("Di,R", [(37, 3), (300, 5)])
+@pytest.mark.parametrize("L", [65, 4161])
+def test_k3_chunked_at_odd_widths(cuda, L, Di, R, N, dtype):
+    """K3 where the last channel group of a chunk is part-filled (37
+    channels) or a chunk walks many groups (300), with an odd dbc row."""
+    _check_k3(_k3_operands(torch.Generator().manual_seed(12), dtype, 3, L, N, Di, R))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Di", [80, 300])
+def test_k3_two_calls_give_the_same_bits(cuda, Di, dtype):
+    """No atomics: dB/dC summed over channel groups and dA over chunks in a
+    fixed order, so two calls on the same inputs agree bit for bit."""
+    args = _k3_operands(torch.Generator().manual_seed(13), dtype, 3, 4161, 16, Di, 5)
+    first = scan.selective_scan_proj_bwd(*args)
+    second = scan.selective_scan_proj_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # ---- K8: the tensor-core kernel and the dispatch ---------------------------

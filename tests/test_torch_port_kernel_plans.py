@@ -1,7 +1,8 @@
 """How the port's wrappers plan their kernel launches, without a card.
 
 K1 and K2 run the chunk-parallel scan of csrc/scan_chunked.cu with the
-chunk length of ``ops/scan.scan_chunk_len``; K8 runs its tensor-core kernel
+chunk length of ``ops/scan.scan_chunk_len``; K3 the chunk-parallel reverse
+scan of csrc/scan_adjoint.cu over chunks of the states' spacing; K8 runs its tensor-core kernel
 for bfloat16 with a head dim of 16, 32 or 64 and its CUDA-core kernel
 otherwise. The kernels themselves run only on the card
 (tests/test_torch_port_cuda.py); here ``_cuda``'s device checks and its
@@ -76,6 +77,50 @@ def test_k1_and_k2_launch_the_same_passes_and_chunks(launches, B, L):
             assert a1[-4:-2] == a2[-4:-2] == (16, tc)
         else:  # the carry walks the summaries of all chunks but the last
             assert a1[-2] == a2[-2] == -(-L // tc) - 1
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 64), (2, 65), (3, 975), (8, 25600)])
+def test_k3_plans_summaries_carry_adjoint_and_sum(launches, monkeypatch, B, L):
+    """K3 over chunks of 64 steps (the spacing of K2's states): the
+    summaries of chunks 1 .. nc-1 into [B, nc-1, N, Di] / [B, nc-1, Di],
+    the carry over those nc - 1 summaries, the adjoint (seeded from that
+    carry, each chunk's dA into [B, nc, N, Di]) and the sum of the nc
+    chunks' dA; one chunk (L <= 64) is the adjoint alone, writing dA
+    itself. One launch counted per call."""
+    u, dbc, Wdt, bdt, A, _ = _scan_args(B, L)
+    Di, N, R, tc = 80, 16, 4, scan.STATE_SPACING
+    nc = -(-L // tc)
+    dy, states = torch.randn(u.shape).to(u.dtype), torch.zeros(B, nc, N, Di)
+    shapes, empty = [], torch.empty
+
+    def recorded_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        shapes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(torch, "empty", recorded_empty)
+    before = scan.selective_scan_proj_bwd.launches
+    du, ddt, dB, dC, dA = scan.selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states)
+    assert scan.selective_scan_proj_bwd.launches == before + 1
+    outs = [(B, L, Di), (B, L, Di), (B, L, N), (B, L, N), (B, N, Di)]
+    assert [tuple(t.shape) for t in (du, ddt, dB, dC, dA)] == outs
+    calls = dict(launches)
+    if nc == 1:
+        assert [n for n, _ in launches] == ["lfsr_scan_adjoint"] and shapes == outs
+        adj = calls["lfsr_scan_adjoint"]
+        assert adj[7] is None and adj[12] == dA.data_ptr()
+    else:
+        assert [n for n, _ in launches] == ["lfsr_scan_adjoint_summaries", "lfsr_chunk_scan_carry",
+                                            "lfsr_scan_adjoint", "lfsr_sum_parts"]
+        assert shapes == outs + [(B, nc - 1, N, Di), (B, nc - 1, Di), (B, nc, N, Di)]
+        summ, car = calls["lfsr_scan_adjoint_summaries"], calls["lfsr_chunk_scan_carry"]
+        adj, total = calls["lfsr_scan_adjoint"], calls["lfsr_sum_parts"]
+        assert summ[7:13] == (B, L, Di, R, N, tc)
+        assert car[1:3] == summ[5:7] and car[3:7] == (B, Di, N, nc - 1)
+        assert adj[7] == summ[5] and adj[12] not in (None, dA.data_ptr())
+        assert total[:2] == (adj[12], dA.data_ptr()) and total[2:5] == (B, nc, N * Di)
+    assert adj[8:12] == tuple(t.data_ptr() for t in (du, ddt, dB, dC))
+    assert adj[13:19] == (B, L, Di, R, N, tc)
 
 
 @pytest.mark.parametrize("dtype,hd,path", [

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
     python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
     python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
+    python3 chip_smoke.py --d-state-24    # build + K1-K3, K9a-K9c at d_state 24 vs plain only
     python3 chip_smoke.py --profile       # + torch.profiler traces of one dispatch / step each
 
 Phases (any failure exits non-zero):
@@ -34,7 +35,10 @@ Phases (any failure exits non-zero):
    batch-8 training ([1280, 160, 128]), with EPIT's own mask, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the library
    yardstick, used nowhere in the port), and which of K8's two kernels
-   took each call (bf16: the tensor-core one; float32: the CUDA-core one).
+   took each call (bf16: the tensor-core one; float32: the CUDA-core one),
+   and of K6's (every flagship call: the tensor-core one, 3xTF32). K1, K2,
+   K3, K9a, K9b and K9c at d_state 24 (EfficientLFNetV7's default, at its
+   widths: [8, 25600, 90], dt rank 5).
    K1 (bf16) also logs its chunk length Tc and the time of each of its
    three passes at the tiled, Synth and Real shapes (K1 and K2 run the
    chunk-parallel scan); K3 (f32 and bf16) its chunk count and the time of
@@ -42,7 +46,8 @@ Phases (any failure exits non-zero):
    chunk-parallel reverse scan). Each kernel's bound: the larger of
    its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its operations over the peak rate for their type (matrix products of
-   bf16 operands 989 TFLOP/s, float32 and all other arithmetic 67 TFLOP/s).
+   bf16 operands 989 TFLOP/s and of float32 ones 495, the tensor cores'
+   TF32 rate; all other arithmetic 67 TFLOP/s).
 3. Training: ``Config(batch_size=8)`` (bf16, augmentation, masked
    pre-training with 2 masked views in epoch 0, dropout, composite_v8,
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
@@ -151,11 +156,17 @@ SCAN_IMPL_KERNELS = {"gated": "K9b scan_gated_fused", "fused": "K9c mamba_inner_
 # ~0.5 s (the chunked scan's ~2,000 chunks), so each twin is timed by the one
 # call that it is compared with, and the kernel over 5 calls
 WHOLE, SCANS = ("synth", "real"), ("K1", "K9a", "K9b", "K9c")
+# the scans at d_state 24, V7's widths (lfsr_tpu/models/efficient_lfnet_v7.py:
+# 72 channels x expand 1.25, dt rank ceil(72 / 16))
+N24_KERNELS = ("K1", "K2", "K3", "K9a", "K9b", "K9c")
+N24_DIMS = {"Di": 90, "N": 24, "R": 5}
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, matrix
-# products of bf16 operands on the tensor cores, float32 on the CUDA cores
+# products on the tensor cores of bf16 and of TF32 operands, float32 on the
+# CUDA cores
 HBM_BYTES_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 
@@ -192,7 +203,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_cases(dtype, g: torch.Generator, only=None):
+def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     """Yields (kernel, where, operands) at the main paths' shapes, each made
     on the card when it is reached: K2, K3 and K4-K7 at the batch-8 train
     step (160x160 SAI patches; 64 channels, Di 80, d_state 16, dt rank 4);
@@ -207,8 +218,10 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
     D given) at train, tiled and Synth, with delta given after softplus
     ("where" as is) and before it ("where/raw"); K8 at EPIT's tiled eval
     (2 patches x 5 x 32 sequences) and batch-8 train step (8 x 5 x 32),
-    L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask.
-    ``only``: the kernels to yield (default all)."""
+    L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask; K1,
+    K2, K3 and K9a-K9c at d_state 24 ("v7-n24": [8, 25600, 90], dt rank 5;
+    K9a with delta before softplus). ``only``: the kernels to yield (default
+    all); ``n24_only``: the d_state 24 cases alone."""
     from lfsr_tpu_torch.models.epit import HEADS, band_mask
     from lfsr_tpu_torch.models.lfmambax import fold_out_conv
     from lfsr_tpu_torch.ops import scan
@@ -218,11 +231,11 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
     def rn(*shape, s=1.0, dt=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * s).to(dt)
 
-    C, Di, N, R, T, heads, c4 = 64, 80, 16, 4, 64, 4, 16
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
+    C, T, heads, c4 = 64, 64, 4, 16
 
-    def operands(name, B, H, W, raw=False):
+    def operands(name, B, H, W, raw=False, Di=80, N=16, R=4):
         L = H * W
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
         if name == "K9a":  # u, delta, A, B, C, D, chunk, pre_softplus
             dbc, delta = rn(B, L, R + 2 * N, s=0.5, dt=dtype), rn(B, L, Di, s=0.5)
             return (rn(B, L, Di, s=0.5, dt=dtype), (delta if raw else scan.softplus(delta)).to(dtype),
@@ -265,23 +278,26 @@ def kernel_cases(dtype, g: torch.Generator, only=None):
         # by 8 and rounded up to a multiple of 8 (720x720 Synth, 640x880 Real)
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
-    for where, shape, names in (("train", (8, 160, 160),
-                                 ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
-                                ("tiled", (2, 160, 160),
-                                 ("K1", "K4", "K5", "K6", "K9a", "K9b", "K9c", "K10")),
-                                ("synth", mosaic(SYNTH_HR),
-                                 ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10")),
-                                ("real", mosaic(REAL_HR),
-                                 ("K1", "K4", "K5", "K6", "K9b", "K9c", "K10"))):
+    main = (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
+            ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K9a", "K9b", "K9c", "K10")),
+            ("synth", mosaic(SYNTH_HR),
+             ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10")),
+            ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K9b", "K9c", "K10")))
+    for where, shape, names in () if n24_only else main:
         for name in names:
             if only is None or name in only:
                 yield name, where, operands(name, *shape)
                 if name == "K9a":
                     yield name, f"{where}/raw", operands(name, *shape, raw=True)
-    if only is None or "K8" in only:
+    if (only is None or "K8" in only) and not n24_only:
         mask = band_mask(5, 32, 10, 11, torch.device(dev))  # EPIT's mask, L = 160
         for where, seqs in (("epit-tiled", 2 * 5 * 32), ("epit-train", 8 * 5 * 32)):
             yield "K8", where, (*(rn(seqs, 160, 2 * C, dt=dtype) for _ in range(3)), mask, HEADS)
+    # d_state 24 (EfficientLFNetV7's default) at its widths (Di 90, dt rank
+    # 5) on the batch-8 train step's scan length
+    for name in N24_KERNELS:
+        if only is None or name in only:
+            yield name, "v7-n24", operands(name, 8, 160, 160, raw=name == "K9a", **N24_DIMS)
 
 
 def by_rows(plain, rows=(0, 1)):
@@ -350,12 +366,14 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
 
 def bound(name: str, args, outs) -> tuple[float, str, float]:
     """The least time the card could take for this call: the larger of its
-    bytes over HBM_BYTES_S and its operations over the peak for their type
-    (matrix products of bf16 operands on the tensor cores, the rest on the
-    CUDA cores). Returns (ms, what sets it, the CUDA-core floor in ms: all of
-    the FLOPs as float32 on the CUDA cores)."""
+    bytes over HBM_BYTES_S and its operations over the peak for their type:
+    matrix products on the tensor cores, of bf16 operands at
+    BF16_TENSOR_FLOPS and of float32 ones at TF32_TENSOR_FLOPS (the rate
+    a float32 product can reach there, as K6's 3xTF32 products do), the
+    rest on the CUDA cores at F32_FLOPS. Returns (ms, what sets it, the
+    CUDA-core floor in ms: all of the FLOPs as float32 on the CUDA cores)."""
     nbytes, mm, other = work(name, args, outs)
-    mm_peak = BF16_TENSOR_FLOPS if args[0].dtype == torch.bfloat16 else F32_FLOPS
+    mm_peak = BF16_TENSOR_FLOPS if args[0].dtype == torch.bfloat16 else TF32_TENSOR_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_S, mm / mm_peak + other / F32_FLOPS
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, 1e3 * (mm + other) / F32_FLOPS
@@ -415,7 +433,7 @@ def k3_passes(args, where: str) -> None:
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" ({CARD})")
 
 
-def check_kernels(results: dict, only=None) -> None:
+def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
 
@@ -444,16 +462,19 @@ def check_kernels(results: dict, only=None) -> None:
             for k in pairs}
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
-        for name, where, args in kernel_cases(dtype, g, only):
+        for name, where, args in kernel_cases(dtype, g, only, n24_only):
             kern, plain = pairs[name]
             big = where in WHOLE and name in SCANS
-            k8_before = dict(ma.PATH_LAUNCHES)
+            k8_before, k6_before = dict(ma.PATH_LAUNCHES), dict(wa.PATH_LAUNCHES)
             got = kern(*args)
             torch.cuda.synchronize()
-            if name == "K8":  # which of its two kernels took the call
-                path = ma.kernel_path(dtype, args[0].shape[-1] // args[4])
-                assert ma.PATH_LAUNCHES[path] == k8_before[path] + 1, ma.PATH_LAUNCHES
-                log(f"[kernels] K8 {str(dtype)[6:]:8s} {where}: the "
+            if name in ("K6", "K8"):  # which of its two kernels took the call
+                mod, before = (wa, k6_before) if name == "K6" else (ma, k8_before)
+                path = (wa.kernel_path(args[0].shape[-1], 4, 8) if name == "K6"
+                        else ma.kernel_path(dtype, args[0].shape[-1] // args[4]))
+                assert mod.PATH_LAUNCHES[path] == before[path] + 1, mod.PATH_LAUNCHES
+                assert name != "K6" or path == "mma", "the flagship's K6 takes the tensor cores"
+                log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the "
                     f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})")
             if name == "K1" and dtype == torch.bfloat16:
                 k1_passes(args, where)
@@ -621,12 +642,19 @@ def k8_kernel(cfg):
 
 def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     """Every kernel's launches == ``want`` (0 for a kernel it does not list);
-    for ``cfg``'s EPIT, every K8 launch by the kernel ``k8_kernel`` names."""
-    from lfsr_tpu_torch.ops import PATH_LAUNCHES
+    every K6 launch (the flagship's: 64 channels, 4 heads of 16) on its
+    tensor-core kernel; for ``cfg``'s EPIT, every K8 launch by the kernel
+    ``k8_kernel`` names."""
+    from lfsr_tpu_torch.ops import K6_PATH_LAUNCHES, PATH_LAUNCHES
 
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
+    k6 = counts["K6 window_mha_fused"]
+    assert K6_PATH_LAUNCHES == {"mma": k6, "fma": 0}, (what, K6_PATH_LAUNCHES, k6)
+    if k6:
+        log(f"[{what}] K6 launches by kernel {K6_PATH_LAUNCHES}: all {k6} on the tensor-core "
+            f"kernel")
     if cfg is not None and cfg.model_name == "EPIT":
         k8, path = counts["K8 masked_mha_fused"], k8_kernel(cfg)
         assert PATH_LAUNCHES[path] == k8 > 0, (PATH_LAUNCHES, k8)
@@ -1134,6 +1162,9 @@ def main() -> int:
                       help="only the flagship's kernel of this scan_impl (K9b or K9c), its "
                            "whole-scene eval phase, beside the 'pallas' dispatches it is held "
                            "against, and its train phase")
+    only.add_argument("--d-state-24", action="store_true",
+                      help="only the scans at d_state 24 (K1-K3, K9a-K9c at [8, 25600, 90], "
+                           "dt rank 5) against their twins, then stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1157,9 +1188,9 @@ def main() -> int:
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     results: dict = {}
-    check_kernels(results, names)
+    check_kernels(results, N24_KERNELS if args.d_state_24 else names, args.d_state_24)
     lap("kernels")
-    if args.kernels_only:
+    if args.kernels_only or args.d_state_24:
         log(CARD)
         return 0
     eval_paths = not args.train_only

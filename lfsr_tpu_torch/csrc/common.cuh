@@ -101,6 +101,50 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
+// close the thread's copies issued since the last commit into one group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most kPending of the thread's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// bf16x3's split of two floats: hi = (bf16(a), bf16(b)) packed, lo = the
+// rests (a - hi_a, b - hi_b) rounded to bf16 and packed, the first low
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d += a . b with 16 of float32's 24 mantissa bits (bf16x3): a_lo b_hi +
+// a_hi b_lo + a_hi b_hi, each summed in float32; both operands come split
+// (split_bf16x2). Relative error ~2^-17 a product
+__device__ __forceinline__ void mma_3xbf16(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], uint32_t b0_hi,
+                                           uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
+  mma_bf16(d, a_lo, b0_hi, b1_hi);
+  mma_bf16(d, a_hi, b0_lo, b1_lo);
+  mma_bf16(d, a_hi, b0_hi, b1_hi);
+}
+
+// ---- the scans' lane plans (csrc/scan_chunked.cu, scan_adjoint.cu, scan.cu) ----
+// Lanes per channel of the chunk-parallel scans (K1/K2 and K3's summaries)
+// at N states, each lane holding N / P of them; the sum over n takes
+// log2(P) shuffles. A power of two, so a channel's P lanes are one shuffle
+// butterfly: 1 up to N 8, 2 at 16 and 24 (12 states a lane: B and C still
+// read 4 at a time), 4 at 32.
+__host__ __device__ constexpr int scan_lanes(int N) { return N <= 8 ? 1 : N <= 24 ? 2 : N / 8; }
+// Lanes a channel spans in the one-warp layouts (lane = (channel, n): K3's
+// adjoint pass, csrc/scan.cu): N rounded up to a power of two, so 32 at
+// N 24, where lanes n >= 24 hold h = 0 and add 0 to every sum over n.
+__host__ __device__ constexpr int state_span(int N) {
+  return N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32;
+}
 
 // allow a kernel more than the default 48 KB of dynamic shared memory
 inline cudaError_t set_smem(const void* fn, size_t smem) {

@@ -35,9 +35,10 @@
 // Design: the TPU kernel carries the state across a sequential grid axis;
 // Hopper's blocks run in no order, so a warp owns whole (b, d) recurrences
 // and loops over L itself.
-//  - Lane = (channel-in-warp, state n): 32/N channels per warp, the N states
-//    of a channel on N lanes, each lane holding its h[n] in a register. The
-//    sum over n is a shuffle butterfly over those lanes.
+//  - Lane = (channel-in-warp, state n): 32/NP channels per warp, the N states
+//    of a channel on NP = lfsr::state_span(N) lanes (N, or 32 at N 24, where
+//    lanes n >= 24 hold h = 0 and add 0), each lane holding its h[n] in a
+//    register. The sum over n is a shuffle butterfly over those NP lanes.
 //  - The dbc rows of a time tile are staged in shared memory once and read
 //    by all lanes; delta and delta*u are computed in a pre-pass, one
 //    softplus per (t, d) instead of one per lane.
@@ -117,7 +118,8 @@ struct ScanParams {
 template <typename TU, typename TY, int N, int kEpi>
 __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   constexpr bool kGate = kEpi == kEpiGate;
-  constexpr int CPW = 32 / N;  // channels per warp
+  constexpr int NP = lfsr::state_span(N);  // lanes a channel spans
+  constexpr int CPW = 32 / NP;             // channels per warp
   constexpr int kCols = (2 * N + 31) / 32;             // staged B|C columns per lane
   constexpr int kRowsPerPass = 32 * kCols / (2 * N);  // B|C rows per warp pass
   extern __shared__ float smem[];
@@ -131,15 +133,16 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
   float* s_g = s_u + kTile * CPW;       // [kTile][CPW], kEpiGate: silu(z)
 
   const int lane = threadIdx.x;
-  const int n = lane % N;
-  const int cl = lane / N;
+  const int n = lane % NP;
+  const int cl = lane / NP;
+  const bool live = n < N;  // false on the padding lanes (N 24)
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * CPW;
   const int d = d0 + cl;
   const int L = p.L, Di = p.Di;
   const bool active = d < Di;
 
-  const float a_n = active ? p.A[(size_t)d * N + n] : 0.f;
+  const float a_n = active && live ? p.A[(size_t)d * N + n] : 0.f;
   const float d_skip = active && (kEpi != kEpiRound || p.dskip) ? p.dskip[d] : 0.f;
   float h = 0.f;
 
@@ -161,6 +164,8 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
       const TU* ct = static_cast<const TU*>(p.cm) + (bl + t0) * p.scm;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
+        // the slots past the whole rows a pass covers idle (N 24: 48 of 64)
+        if (lane + 32 * c >= kRowsPerPass * 2 * N) break;
         const int col = (lane + 32 * c) % (2 * N);
         const TU* src = col < N ? bt + col : ct + (col - N);
         const long long sr = col < N ? p.sbm : p.scm;
@@ -206,8 +211,8 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
         const float* row = s_row + tt * K;
         const int ti = tt * CPW + cl;
         e[k] = expf(s_delta[ti] * a_n);
-        bx[k] = row[ob + n] * s_du[ti];
-        c[k] = row[ob + N + n];
+        bx[k] = live ? row[ob + n] * s_du[ti] : 0.f;
+        c[k] = live ? row[ob + N + n] : 0.f;
       }
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
@@ -215,7 +220,7 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
         part[k] = c[k] * h;
       }
 #pragma unroll
-      for (int o = N / 2; o > 0; o >>= 1) {
+      for (int o = NP / 2; o > 0; o >>= 1) {
 #pragma unroll
         for (int k = 0; k < kGroup; ++k) part[k] += __shfl_xor_sync(0xffffffffu, part[k], o);
       }
@@ -241,7 +246,7 @@ __global__ void __launch_bounds__(32) scan_kernel(const ScanParams p) {
 
 template <typename TU, typename TY, int N, int kEpi>
 cudaError_t launch_scan(const ScanParams& p, int B, cudaStream_t stream) {
-  constexpr int CPW = 32 / N;
+  constexpr int CPW = 32 / lfsr::state_span(N);
   const int K = p.mode == kFromDbc ? p.R + 2 * N : 2 * N;
   const size_t smem =
       sizeof(float) * (size_t)kTile * (K + (kEpi == kEpiGate ? 4 : 3) * CPW);
@@ -258,6 +263,7 @@ cudaError_t dispatch_n(const ScanParams& p, int B, int N, cudaStream_t s) {
     case 4: return launch_scan<TU, TY, 4, kEpi>(p, B, s);
     case 8: return launch_scan<TU, TY, 8, kEpi>(p, B, s);
     case 16: return launch_scan<TU, TY, 16, kEpi>(p, B, s);
+    case 24: return launch_scan<TU, TY, 24, kEpi>(p, B, s);
     case 32: return launch_scan<TU, TY, 32, kEpi>(p, B, s);
     default: return cudaErrorInvalidValue;
   }

@@ -36,12 +36,13 @@
 // bits of one walk over all of L; the checks hold every output to 1e-4 of
 // its own scale max(1, max|twin|).
 //
-// Inside pass A: P lanes share a channel (lanes_for, as K1), each holding
+// Inside pass A: P lanes share a channel (lfsr::scan_lanes, as K1), each holding
 // N / P carries in registers; the walk needs no shuffle. A thread's dy loads
 // of the pre-pass are issued together, its dt weights held in registers.
-// Inside pass C: lane = (channel-in-warp, state n), 32 / N channels per
-// warp, the N states of a channel on N lanes; the sums over n are shuffle
-// butterflies. Both walks go kG steps at a time: the steps' shared-memory
+// Inside pass C: lane = (channel-in-warp, state n), 32 / NP channels per
+// warp, the N states of a channel on NP = lfsr::state_span(N) lanes (N, or
+// 32 at N 24, where lanes n >= 24 hold h = 0 and mu = 0 and add 0); the
+// sums over n are shuffle butterflies. Both walks go kG steps at a time: the steps' shared-memory
 // reads and exps first, then the dependent chain (h forwards, mu
 // backwards: one FMA and one multiply a step), then (backwards) the kG
 // steps' butterflies interleaved, so a warp waits on one chain of
@@ -50,7 +51,7 @@
 // shuffles a step at N 16 instead of 10. Per step a lane reads its
 // channel's (delta, u, dy, delta u) as one float4 and its (B, C) as one
 // float2. dB and dC sum over all Di channels, so the CTA walks all channel
-// groups of its chunk (kWarps x 32 / N channels each) in turn, the next
+// groups of its chunk (kWarps x 32 / NP channels each) in turn, the next
 // group's u and dy loads in flight through this group's walks: each warp
 // sums its channels by shuffles and keeps the sums in the rows of its h_t
 // it has walked past; each thread adds the group's warps' sums, in warp
@@ -70,9 +71,6 @@ constexpr int kG = 4;              // pass C: steps walked as one group
 constexpr int kMaxThreads = 512;   // pass A: threads per CTA at most,
 constexpr int kMaxChannels = 128;  // and channels (its staging: ~66 KB at 128)
 constexpr float kLog2e = 1.4426950408889634f;
-
-// lanes per channel in pass A at N states (each lane holds N / P of them)
-__host__ __device__ constexpr int lanes_for(int N) { return N <= 8 ? 1 : N / 8; }
 
 __device__ __forceinline__ float softplus(float x) {
   // logaddexp(x, 0), the form jax.nn.softplus uses
@@ -121,7 +119,7 @@ struct AdjParams {
 // Pass A: grid (channel groups, nc - 1, B), CG x P threads
 template <typename T, int N>
 __global__ void __launch_bounds__(kMaxThreads) adjoint_summary_kernel(const AdjParams p) {
-  constexpr int P = lanes_for(N), NS = N / P;
+  constexpr int P = lfsr::scan_lanes(N), NS = N / P;
   constexpr int kRows = 16;  // the pre-pass's steps per thread whose loads go together
   extern __shared__ __align__(16) float smem[];
   const int CG = blockDim.x / P;  // channels per CTA (those past Di idle)
@@ -190,7 +188,8 @@ __global__ void __launch_bounds__(kMaxThreads) adjoint_summary_kernel(const AdjP
 // its chunk in turn (see the header)
 template <typename T, int N>
 __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams p) {
-  constexpr int CPW = 32 / N;
+  constexpr int NP = lfsr::state_span(N);  // lanes a channel spans
+  constexpr int CPW = 32 / NP;
   constexpr int CG = kWarps * CPW;      // channels per group
   constexpr int TC = kChunk;
   constexpr bool kAlias = 2 * N <= 32;  // the warp's dB/dC sums fit a spent row of s_h
@@ -211,8 +210,9 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
   float* s_h = s_warps + warp * kPerWarp;       // [TC][32]: h_t of every lane
   float* s_p = kAlias ? s_h : s_h + TC * 32;    // [TC][kPS]: the warp's dB at [0, N), dC at [N, 2N)
 
-  const int n = lane % N;
-  const int cl = lane / N;
+  const int n = lane % NP;
+  const int cl = lane / NP;
+  const bool live = n < N;         // false on the padding lanes (N 24)
   const int ci = warp * CPW + cl;  // the lane's channel in its group
   const int k = blockIdx.x, b = blockIdx.y;
   const int t0 = k * TC, nt = min(TC, L - t0);
@@ -276,11 +276,11 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
   for (int gi = 0; gi < groups; ++gi) {
     fetch(gi + 1);
     const int d = gi * CG + ci;
-    const bool active = d < Di;
-    const float a_n = active ? p.A[(size_t)d * N + n] : 0.f;
+    const bool active = d < Di, on = active && live;
+    const float a_n = on ? p.A[(size_t)d * N + n] : 0.f;
     const float a2 = a_n * kLog2e;
     // forward: the chunk's states from its saved start state (K2's ops)
-    const float h0 = active ? st[(size_t)n * Di + d] : 0.f;
+    const float h0 = on ? st[(size_t)n * Di + d] : 0.f;
     float h = h0;
     for (int tg = 0; tg < nt; tg += kG) {
       float e[kG], bx[kG];
@@ -289,7 +289,7 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
         const int tt = min(tg + j, nt - 1);  // a ragged tail repeats the last step unused
         const float4 pr = s_pre[tt * CG + ci];
         e[j] = lfsr::ex2(pr.x * a2);
-        bx[j] = s_bc[tt * N + n].x * pr.w;
+        bx[j] = live ? s_bc[tt * N + n].x * pr.w : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < kG; ++j) {
@@ -302,7 +302,7 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
     __syncwarp();
     // backward: the adjoint from the chunk's end to its start, kG steps at a
     // time (steps te, te - 1, ..., te - kG + 1; those below 0 unused)
-    float mu = active && mu_in ? mu_in[(size_t)n * Di + d] : 0.f;
+    float mu = on && mu_in ? mu_in[(size_t)n * Di + d] : 0.f;
     float da_acc = 0.f;
     for (int te = nt - 1; te >= 0; te -= kG) {
       float4 pr[kG];
@@ -312,7 +312,7 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
       for (int j = 0; j < kG; ++j) {
         const int tt = max(te - j, 0);
         pr[j] = s_pre[tt * CG + ci];
-        bc[j] = s_bc[tt * N + n];
+        bc[j] = live ? s_bc[tt * N + n] : make_float2(0.f, 0.f);
         dA[j] = lfsr::ex2(pr[j].x * a2);
         hr[j] = s_h[tt * 32 + lane];
       }
@@ -323,7 +323,7 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
         if (te - j >= 0) mu = dA[j] * lam[j];
       }
       // Two sums share each butterfly: at its first level a lane keeps one
-      // (s1 = sum_n lambda B below N / 2, wa = sum_n w A above; pb = dB's
+      // (s1 = sum_n lambda B below NP / 2, wa = sum_n w A above; pb = dB's
       // below lane 16, pc = dC's above) and sends its partner the other
       float v[kG], q[kG], qc[kG];  // qc: dC's sums when a warp holds one channel
 #pragma unroll
@@ -333,8 +333,8 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
         if (te - j >= 0) da_acc = fmaf(w, pr[j].x, da_acc);
         const float s1 = lam[j] * bc[j].x, wa = w * a_n;
         const float pb = lam[j] * pr[j].w, pc = hr[j] * pr[j].z;
-        const bool hi = n & (N / 2);
-        v[j] = (hi ? wa : s1) + __shfl_xor_sync(0xffffffffu, hi ? s1 : wa, N / 2);
+        const bool hi = n & (NP / 2);
+        v[j] = (hi ? wa : s1) + __shfl_xor_sync(0xffffffffu, hi ? s1 : wa, NP / 2);
         if constexpr (CPW > 1) {
           q[j] = (lane & 16 ? pc : pb) + __shfl_xor_sync(0xffffffffu, lane & 16 ? pb : pc, 16);
         } else {  // one channel a warp: nothing to sum over channels
@@ -343,18 +343,18 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
         }
       }
 #pragma unroll
-      for (int o = N / 4; o > 0; o >>= 1) {  // over the N states of a channel
+      for (int o = NP / 4; o > 0; o >>= 1) {  // over the NP lanes of a channel
 #pragma unroll
         for (int j = 0; j < kG; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
       }
 #pragma unroll
-      for (int o = 8; o >= N; o >>= 1) {  // over the warp's channels
+      for (int o = 8; o >= NP; o >>= 1) {  // over the warp's channels
 #pragma unroll
         for (int j = 0; j < kG; ++j) q[j] += __shfl_xor_sync(0xffffffffu, q[j], o);
       }
-      float wa_at0[kG];  // lane n = 0 holds s1; wa from lane N / 2
+      float wa_at0[kG];  // lane n = 0 holds s1; wa from lane NP / 2
 #pragma unroll
-      for (int j = 0; j < kG; ++j) wa_at0[j] = __shfl_xor_sync(0xffffffffu, v[j], N / 2);
+      for (int j = 0; j < kG; ++j) wa_at0[j] = __shfl_xor_sync(0xffffffffu, v[j], NP / 2);
       __syncwarp();  // every lane has read these steps' rows of s_h
 #pragma unroll
       for (int j = 0; j < kG; ++j) {
@@ -366,14 +366,14 @@ __global__ void __launch_bounds__(32 * kWarps, 4) adjoint_kernel(const AdjParams
           }
           if constexpr (CPW > 1) {
             if (lane % 16 < N) s_p[tt * kPS + (lane & 16 ? N : 0) + n] = q[j];
-          } else {
+          } else if (live) {
             s_p[tt * kPS + n] = q[j];
             s_p[tt * kPS + N + n] = qc[j];
           }
         }
       }
     }
-    if (active) dab[(size_t)n * Di + d] = da_acc;
+    if (on) dab[(size_t)n * Di + d] = da_acc;
     __syncthreads();
     // this group's dB / dC: its warps' sums added in warp order; then the
     // next group's delta, u and dy, whose loads have landed
@@ -418,7 +418,7 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restri
 
 template <typename T, int N>
 cudaError_t launch_summaries(const AdjParams& p, int B, cudaStream_t s) {
-  constexpr int P = lanes_for(N);
+  constexpr int P = lfsr::scan_lanes(N);
   const int cg = min(p.Di, min(kMaxThreads / P, kMaxChannels));
   const size_t smem = sizeof(float) * ((size_t)kChunk * (p.R + 2 * N) + 2 * (size_t)kChunk * cg);
   auto* kernel = adjoint_summary_kernel<T, N>;
@@ -430,7 +430,7 @@ cudaError_t launch_summaries(const AdjParams& p, int B, cudaStream_t s) {
 
 template <typename T, int N>
 cudaError_t launch_adjoint(const AdjParams& p, int B, cudaStream_t s) {
-  constexpr int CG = kWarps * 32 / N;
+  constexpr int CG = kWarps * (32 / lfsr::state_span(N));
   const size_t per_warp = kChunk * 32 + (2 * N <= 32 ? 0 : kChunk * 2 * N);
   const size_t smem = sizeof(float) * ((size_t)kChunk * (4 * CG + 2 * N + p.R) +
                                        kWarps * per_warp);
@@ -453,6 +453,7 @@ cudaError_t by_state(const AdjParams& p, int B, int N, char pass, cudaStream_t s
     case 4: return run_pass<T, 4>(p, B, pass, s);
     case 8: return run_pass<T, 8>(p, B, pass, s);
     case 16: return run_pass<T, 16>(p, B, pass, s);
+    case 24: return run_pass<T, 24>(p, B, pass, s);
     case 32: return run_pass<T, 32>(p, B, pass, s);
     default: return cudaErrorInvalidValue;
   }

@@ -33,7 +33,8 @@
 // Inside a chunk: a CTA owns a (b, chunk) and a group of channels. P lanes
 // share a channel, each holding N / P states (and A for them) in
 // registers; the sum over n is N / P FMAs and log2(P) shuffles. P is fixed
-// by N (lanes_for: 1 up to N 8, then N / 8, so 2 at the flagship's 16):
+// by N (lfsr::scan_lanes in common.cuh: 1 up to N 8, 2 at the flagship's
+// 16 and at 24, 4 at 32):
 // with 16 states a lane a CTA of 80 channels is 3 warps and each step 16
 // SFU issues in a row; P = N (the lane = (channel, n) layout of
 // csrc/scan.cu) pays log2(N) shuffles a step. Tiles of kT steps of the
@@ -55,9 +56,6 @@ constexpr int kMaxThreads = 512;   // CTA size limit: channels per CTA = 512 / P
 constexpr int kMaxChannels = 256;  // and 256 at most (a float32 CTA's staging: ~140 KB)
 constexpr int kUnroll = 8;         // the carry: chunks whose loads are issued together
 constexpr float kLog2e = 1.4426950408889634f;
-
-// lanes per channel at N states (each lane holds N / P of them)
-constexpr int lanes_for(int N) { return N <= 8 ? 1 : N / 8; }
 
 __host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 // a staged buffer's bytes: dbc, kT rows of at most kMaxR + 2N values in one
@@ -106,7 +104,8 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// NS consecutive floats of shared memory (16-byte aligned when NS % 4 == 0)
+// NS consecutive floats of shared memory (16-byte aligned when NS % 4 == 0,
+// 8-byte aligned when NS % 2 == 0)
 template <int NS>
 __device__ __forceinline__ void load_states(float (&v)[NS], const float* p) {
   if constexpr (NS % 4 == 0) {
@@ -114,6 +113,12 @@ __device__ __forceinline__ void load_states(float (&v)[NS], const float* p) {
     for (int i = 0; i < NS; i += 4) {
       const float4 q = *reinterpret_cast<const float4*>(p + i);
       v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else if constexpr (NS % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + i);
+      v[i] = q.x; v[i + 1] = q.y;
     }
   } else {
 #pragma unroll
@@ -315,7 +320,7 @@ cudaError_t launch_pass(const ChunkParams& p, int B, int chunks, cudaStream_t s)
 // pass: 1 summaries, 3 outputs (kStates when p.states is set)
 template <typename T, int N>
 cudaError_t run_pass(const ChunkParams& p, int B, int pass, cudaStream_t s) {
-  constexpr int P = lanes_for(N);
+  constexpr int P = lfsr::scan_lanes(N);
   if (pass == 1) return launch_pass<T, N, P, false, false>(p, B, p.nc - 1, s);
   if (p.states) return launch_pass<T, N, P, true, true>(p, B, p.nc, s);
   return launch_pass<T, N, P, true, false>(p, B, p.nc, s);
@@ -327,6 +332,7 @@ cudaError_t by_state(const ChunkParams& p, int B, int N, int pass, cudaStream_t 
     case 4: return run_pass<T, 4>(p, B, pass, s);
     case 8: return run_pass<T, 8>(p, B, pass, s);
     case 16: return run_pass<T, 16>(p, B, pass, s);
+    case 24: return run_pass<T, 24>(p, B, pass, s);
     case 32: return run_pass<T, 32>(p, B, pass, s);
     default: return cudaErrorInvalidValue;
   }

@@ -5,7 +5,8 @@ plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
 scan's autograd Function (``scan.ScanProj``) and K4-K8, K9a-K9c and K10
 inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace; K8's ``PATH_LAUNCHES``
-splits its launches between its tensor-core and CUDA-core kernels.
+and K6's ``K6_PATH_LAUNCHES`` split their launches between each one's
+tensor-core and CUDA-core kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from lfsr_tpu_torch.ops.scan import (
     mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
     selective_scan_proj_bwd, selective_scan_proj_states,
 )
+from lfsr_tpu_torch.ops.window_attention import PATH_LAUNCHES as K6_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
@@ -74,8 +76,9 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
-    for path in PATH_LAUNCHES:  # K8's per-kernel counts
-        PATH_LAUNCHES[path] = 0
+    for counts in (PATH_LAUNCHES, K6_PATH_LAUNCHES):  # K8's and K6's per-kernel counts
+        for path in counts:
+            counts[path] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -69,6 +69,9 @@ _SIGNATURES = {
     # x, wqkv, wout, ln_g, ln_b, bias, scale, y, B, H, W, C, ws, heads,
     # qscale, eps, dtype, stream
     "lfsr_window_mha": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, wqkv, wout, ln_g, ln_b, bias, scale, y, B, H, W, C, heads, qscale,
+    # eps, CTAs, windows a CTA, shared-memory bytes, dtype, stream
+    "lfsr_window_mha_mma": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _S, _I, _P],
     # x, gamma, beta, whm, wrest, wk, xn, local, B, H, W, C, c4, slope, eps,
     # dtype, stream
     "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
@@ -170,6 +173,11 @@ def launch(name: str, *args) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card ``t`` lies on."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 # --------------------------------------------------------------------------

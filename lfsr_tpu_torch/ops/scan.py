@@ -68,6 +68,16 @@ SCAN_CTAS = 4096
 SCAN_CHUNK, CHUNKED_ABOVE = 256, 4096
 # where the forward scan takes delta from (ScanParams::mode, csrc/scan.cu)
 _FROM_DBC, _GIVEN_RAW, _GIVEN = 0, 1, 2
+# d_state values every scan kernel is compiled for (the switches of
+# csrc/scan_chunked.cu, scan_adjoint.cu and scan.cu)
+D_STATES = (4, 8, 16, 24, 32)
+
+
+def _check_d_state(N: int, R: int | None = None) -> None:
+    if N not in D_STATES:
+        raise ValueError(f"scan kernels take d_state in {D_STATES}, got N={N}")
+    if R is not None and not 1 <= R <= 8:
+        raise ValueError(f"scan kernels take dt_rank in 1..8, got R={R}")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -119,9 +129,7 @@ def _check_scan(u, dbc, Wdt, bdt, A, D_skip=None):
     _cuda.check(A, "A", (Di, N), f32, dev)
     if D_skip is not None:
         _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
-    if N not in (4, 8, 16, 32) or not 1 <= R <= 8:
-        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32) and dt_rank <= 8, "
-                         f"got N={N}, R={R}")
+    _check_d_state(N, R)
     return code
 
 
@@ -399,8 +407,7 @@ def _scan_gated(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus):
     _cuda.check(A, "A", (Di, N), f32, dev)
     _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
     _cuda.check(Wout, "Wout", (Di, Dout), u.dtype, dev)
-    if N not in (4, 8, 16, 32):
-        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32), got N={N}")
+    _check_d_state(N)
     stream = _cuda.stream_of(u)
     gated = torch.empty_like(u)
     _cuda.launch(
@@ -461,9 +468,7 @@ def _mamba_inner(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
                            (Wx, "Wx", (Di, J)), (Wdt, "Wdt", (R, Di)), (bdt, "bdt", (Di,)),
                            (A, "A", (Di, N)), (D_skip, "D_skip", (Di,))):
         _cuda.check(t, name, shape, f32, dev)
-    if N not in (4, 8, 16, 32) or not 1 <= R <= 8:
-        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32) and dt_rank <= 8, "
-                         f"got N={N}, R={R}")
+    _check_d_state(N, R)
     stream = _cuda.stream_of(xs)
     xc = torch.empty((B, L, Di), dtype=f32, device=dev)
     dbc = torch.empty((B, L, J), dtype=f32, device=dev)
@@ -542,8 +547,7 @@ def _selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
     _cuda.check(A, "A", (Di, N), f32, dev)
     if D_skip is not None:
         _cuda.check(D_skip, "D_skip", (Di,), f32, dev)
-    if N not in (4, 8, 16, 32):
-        raise ValueError(f"scan kernels take d_state in (4, 8, 16, 32), got N={N}")
+    _check_d_state(N)
     y = torch.empty_like(u)
     _cuda.launch(
         "lfsr_scan_given", u.data_ptr(), delta.data_ptr(), Bc.data_ptr(), sb, Cc.data_ptr(),

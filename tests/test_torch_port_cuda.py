@@ -18,7 +18,12 @@ one-block EPIT on CUDA vs on the CPU. K1 and K2 (the chunk-parallel scan)
 at lengths around their chunk length, K3 (the chunk-parallel reverse scan)
 around its chunk of 64 steps and at odd widths, two of its calls bit-equal,
 K8's tensor-core kernel at several lengths and head dims with band and
-random -inf masks, and which K8 kernel each dtype and head dim takes.
+random -inf masks, and which K8 kernel each dtype and head dim takes. K6's
+two kernels by shape (the tensor-core one at the flagship's head dim 16 and
+at 8, the CUDA-core one at 4 and 18), two of its calls bit-equal. The scans
+at d_state 24 (V7's default): K1, K2 and K3 at every length case beside
+4-32, and K1, K2, K3, K9a, K9b and K9c at V7's widths (Di 90, dt rank 5)
+and at an odd one (Di 37, rank 3).
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -325,7 +330,7 @@ def _scan_length(B, which):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("N", [4, 8, 16, 24, 32])
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("L", [1, 63, 64, 65, "Tc-1", "Tc", "Tc+1", "3Tc+17", 25600])
 def test_k1_k2_chunked_match_twins_and_each_other(cuda, L, B, N, dtype):
@@ -388,7 +393,7 @@ def _check_k3(args):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("N", [4, 8, 16, 24, 32])
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("L", [1, 63, 64, 65, 975, 4161])
 def test_k3_chunked_matches_twin(cuda, L, B, N, dtype):
@@ -470,3 +475,102 @@ def test_k8_float32_and_head_dim_8_take_the_cuda_core_kernel(cuda, dtype, hd):
     assert masked_attention.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
     err, scale = _cuda.twin_error(got, masked_attention.masked_mha_plain(q, k, v, mask, 128 // hd))
     assert err <= TOL[dtype] * scale, err
+
+
+# ---- K6: the two kernels by shape -------------------------------------------
+
+def _k6_args(g, dtype, B, H, W, C, heads, scale=0.25):
+    return (_rn(g, B, H, W, C, dtype=dtype), _rn(g, C, 3 * C, s=C**-0.5), _rn(g, C, C, s=C**-0.5),
+            1 + _rn(g, C, s=0.2), _rn(g, C, s=0.1), _rn(g, 64, heads * 64, s=0.02),
+            torch.full((1,), scale, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,path", [
+    ((2, 160, 160, 64, 4), "mma"), ((8, 160, 160, 64, 4), "mma"), ((1, 40, 72, 64, 4), "mma"),
+    ((1, 720, 720, 64, 4), "mma"), ((3, 24, 40, 32, 4), "mma"), ((1, 16, 24, 88, 11), "mma"),
+    ((1, 16, 16, 16, 4), "fma"), ((2, 40, 40, 72, 4), "fma")],
+    ids=["tiled", "train", "non_square", "synth_row", "hd8", "c88", "small_hd4", "v8_hd18"])
+@pytest.mark.parametrize("attn_scale", [0.25, 1.0])
+def test_k6_takes_its_kernel_by_shape_and_holds_its_twin(cuda, dtype, shape, path, attn_scale):
+    """The flagship's shapes (head dim 16, float32 and bfloat16) and head dim
+    8 on the tensor cores; head dims 4 and 18 on the CUDA cores; float32 to
+    1e-4 of scale, also at attn_scale 1 where one TF32 product would miss."""
+    B, H, W, C, heads = shape
+    args = _k6_args(torch.Generator().manual_seed(14), dtype, B, H, W, C, heads, attn_scale)
+    assert window_attention.kernel_path(C, heads, 8) == path
+    before = dict(window_attention.PATH_LAUNCHES)
+    got = window_attention.window_mha_fused(*args, 8, heads, 1e-6)
+    torch.cuda.synchronize()
+    assert window_attention.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}
+    want = window_attention.window_mha_plain(*args, 8, heads, 1e-6)
+    assert got.dtype == dtype and got.shape == want.shape
+    err, scale = _cuda.twin_error(got, want)
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_two_calls_give_the_same_bits(cuda, dtype):
+    args = _k6_args(torch.Generator().manual_seed(15), dtype, 4, 160, 240, 64, 4)
+    first = window_attention.window_mha_fused(*args)
+    second = window_attention.window_mha_fused(*args)
+    assert torch.equal(first, second)
+
+
+# ---- the scans at d_state 24 ------------------------------------------------
+
+def _n24_cases(g, dtype, B, L, Di, R, N=24):
+    """K1, K2, K3, K9a, K9b and K9c at d_state N with Di channels and dt
+    rank R, B and C (and z, xs) at the model's row strides."""
+    u, dbc, Wdt, bdt, A, D = _scan_operands(g, dtype, B, L, N, Di, R)
+    with torch.no_grad():
+        states = scan.selective_scan_proj_states(u, dbc, Wdt, bdt, A, D)[1]
+    xz = _rn(g, B, L, 2 * Di, dtype=dtype)
+    Bc, Cc = dbc[..., R : R + N], dbc[..., R + N :]
+    return {
+        "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain, (u, dbc, Wdt, bdt, A, D)),
+        "K2": (scan.selective_scan_proj_states, scan.selective_scan_proj_states_plain,
+               (u, dbc, Wdt, bdt, A, D)),
+        "K3": (scan.selective_scan_proj_bwd, scan.selective_scan_proj_bwd_plain,
+               (u, dbc, _rn(g, B, L, Di, dtype=dtype), Wdt, bdt, A, states)),
+        "K9a": (scan.selective_scan_fused, scan.selective_scan_fused_plain,
+                (u, _rn(g, B, L, Di, s=0.5, dtype=dtype), A, Bc, Cc, D, 64, True)),
+        "K9b": (scan.scan_gated_fused, scan.scan_gated_plain,
+                (u, _rn(g, B, L, Di, s=0.5, dtype=dtype), A, Bc, Cc, xz[..., Di:], D,
+                 _rn(g, Di, 72, s=Di**-0.5, dtype=dtype), True)),
+        "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain,
+                (xz[..., :Di], xz[..., Di:], _rn(g, 4, Di, s=0.3), _rn(g, Di, s=0.1),
+                 _rn(g, Di, R + 2 * N, s=Di**-0.5), Wdt, bdt, A, D)),
+    }
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K9a", "K9b", "K9c"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Di,R,L", [(90, 5, 4160), (90, 5, 25600), (37, 3, 975)],
+                         ids=["v7", "v7_train", "odd"])
+def test_scans_at_d_state_24_match_their_twins(cuda, name, dtype, Di, R, L):
+    """Each output to its own scale (float32 outputs of K2 and K3 to 1e-4);
+    K2's y equal to K1's bit for bit."""
+    kern, plain, args = _n24_cases(torch.Generator().manual_seed(16), dtype, 2, L, Di, R)[name]
+    before = kern.launches
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    if name == "K2":
+        assert torch.equal(got[0], scan.selective_scan_proj(*args))
+    want = plain(*args)
+    for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err, scale = _cuda.twin_error(a, b)
+        assert err <= TOL[a.dtype] * scale, err
+
+
+@pytest.mark.parametrize("N", [12, 20, 64])
+def test_scans_refuse_a_d_state_outside_the_set(cuda, N):
+    kern, _, args = _n24_cases(torch.Generator().manual_seed(17), torch.float32, 1, 64, 16, 2,
+                               N=16)["K1"]
+    u, dbc, Wdt, bdt, A, D = args
+    dbc = _rn(torch.Generator().manual_seed(18), 1, 64, 2 + 2 * N)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(16, 1).cuda()
+    with pytest.raises(ValueError, match=r"\(4, 8, 16, 24, 32\)"):
+        kern(u, dbc, Wdt, bdt, A, D)

@@ -16,13 +16,14 @@ Phases (any failure exits non-zero):
 2. Kernels vs plain: each kernel against its plain PyTorch twin on the
    card, in float32 with TF32 off (tight bound) and in bfloat16 (loose
    bound), with kernel and twin times, at every shape the main paths give
-   it: K1 scan, K4 cross-scan gather, K5 cross-scan scatter and K6 window
-   attention at the tiled-eval shapes and at a Real whole-scene dispatch
-   ([4, 640, 880, 64]); those four and K7 LayerNorm + local branch at a
-   Synth one ([4, 720, 720, 64]); K2 (the scan's training forward, whose y
-   must equal K1's bit for bit), K3 (its adjoint) and K4-K7 at the batch-8
-   training shape ([8, 160, 160, 64], scan [8, 25600, 80]); K9b (the
-   gated-epilogue scan + out-projection of ``scan_impl='gated'``) and K9c
+   it: K1 scan, K4 cross-scan gather, K5 cross-scan scatter, K6 window
+   attention and K7 LayerNorm + local branch at the tiled-eval shapes and
+   at a Real whole-scene dispatch ([4, 640, 880, 64]), where K7 takes the
+   float32 residual stream (its float32-input mode); those five at a
+   Synth one ([4, 720, 720, 64]), K7 on x rounded to bf16 (the TPU's
+   gate); K2 (the scan's training forward, whose y must equal K1's bit for
+   bit), K3 (its adjoint) and K4-K7 at the batch-8 training shape ([8,
+   160, 160, 64], scan [8, 25600, 80]); K9b (the gated-epilogue scan + out-projection of ``scan_impl='gated'``) and K9c
    (the fused Mamba inner pipeline of ``'fused'``) at the tiled scan shape
    [2, 25600, 80], the Synth one [4, 518400, 80] and the Real one
    [4, 563200, 80]; K10 (the HLFR tail: expansion matmul + lrelu + folded
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero):
    ``scaled_dot_product_attention`` call on the same inputs (the library
    yardstick, used nowhere in the port), and which of K8's two kernels
    took each call (bf16: the tensor-core one; float32: the CUDA-core one),
-   and of K6's (every flagship call: the tensor-core one, 3xTF32). K1, K2,
+   and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
+   and K7's (bf16: the tensor-core ones). K1, K2,
    K3, K9a, K9b and K9c at d_state 24 (EfficientLFNetV7's default, at its
    widths: [8, 25600, 90], dt rank 5).
    K1 (bf16) also logs its chunk length Tc and the time of each of its
@@ -52,11 +54,12 @@ Phases (any failure exits non-zero):
    pre-training with 2 masked views in epoch 0, dropout, composite_v8,
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
    untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
-   step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0), finite loss/PSNR/SSIM,
+   step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0; every K5 and K7 launch on
+   its tensor-core kernel), finite loss/PSNR/SSIM,
    ms/step, steps/s, peak memory. A batch holding a NaN must leave the
    parameters and the optimizer's inner state as they were. One float32
    step's parameter gradients on the kernels against the plain twins
-   (batch 4, the smallest batch at K7's gate). Then the same under
+   (batch 4; K5 and K7 on their CUDA-core kernels). Then the same under
    ``Config(batch_size=8, model_kwargs={'scan_impl': impl})`` for impl in
    ('gated', 'fused'): K9b or K9c 12 per step in K2's place, K1/K2/K3 0
    (the scan's gradient is its twin's, the chunked scan).
@@ -67,8 +70,8 @@ Phases (any failure exits non-zero):
    PSNR/SSIM beside bicubic, ms/scene.
 5. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
-   (432x624 HR), one dispatch each: launch counts per dispatch (K7 on the
-   square Synth mosaic only, K10 once), finite SR and metrics, ms/scene and peak
+   (432x624 HR), one dispatch each: launch counts per dispatch (K7 12 on
+   both, K10 once), finite SR and metrics, ms/scene and peak
    memory; one scene per geometry against the plain twins. Then the same
    8 scenes under ``Config(model_kwargs={'scan_impl': impl})`` for impl in
    ('gated', 'fused'), with the same seeded parameters: K9b or K9c 12 per
@@ -127,9 +130,8 @@ TILED_HR = (512, 512)
 EVAL_SCENES, SUBMISSION_SCENES = 4, 16
 
 # per-parameter gradient of one float32 train step, kernels vs plain twins:
-# max|g_kernel - g_plain| <= bound * max(1, max|g_plain|); batch 4, the
-# smallest batch of 160^2 patches at K7's gate (so all of K2-K7 are on the
-# flagship's path)
+# max|g_kernel - g_plain| <= bound * max(1, max|g_plain|); batch 4 of 160^2
+# patches (K2-K7 and K10 on the flagship's path)
 GRAD_BOUND = 1e-4
 GRAD_BATCH = 4
 
@@ -207,14 +209,14 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     """Yields (kernel, where, operands) at the main paths' shapes, each made
     on the card when it is reached: K2, K3 and K4-K7 at the batch-8 train
     step (160x160 SAI patches; 64 channels, Di 80, d_state 16, dt rank 4);
-    K1/K4/K5/K6 and K9b/K9c (the ``scan_impl='gated'``/``'fused'`` scans,
+    K1/K4-K7 and K9b/K9c (the ``scan_impl='gated'``/``'fused'`` scans,
     their operands laid out as the model gives them: B and C slices of dbc,
     xs and z halves of in_proj's output) at tiled eval (minibatch 2); all
     five eval kernels and K9b/K9c at a Synth whole-scene dispatch;
-    K1/K4/K5/K6 and K9b/K9c at a Real one (K7 is not taken on the
-    non-square Real mosaic); K10 (the HLFR tail, on the last stage's map at
-    twice the LR mosaic's side: Cz 256, rr 4, kf folded from a seeded 3x3
-    kernel) at all four; K9a (the op-level scan, B and C slices of a dbc,
+    K1/K4-K7 and K9b/K9c at a Real one (K7 at tiled and Real in its
+    float32-input mode: x float32, the weights in ``dtype``); K10 (the
+    HLFR tail, on the last stage's map at twice the LR mosaic's side: Cz
+    256, rr 4, kf folded from a seeded 3x3 kernel) at all four; K9a (the op-level scan, B and C slices of a dbc,
     D given) at train, tiled and Synth, with delta given after softplus
     ("where" as is) and before it ("where/raw"); K8 at EPIT's tiled eval
     (2 patches x 5 x 32 sequences) and batch-8 train step (8 x 5 x 32),
@@ -233,7 +235,7 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
 
     C, T, heads, c4 = 64, 64, 4, 16
 
-    def operands(name, B, H, W, raw=False, Di=80, N=16, R=4):
+    def operands(name, B, H, W, raw=False, Di=80, N=16, R=4, f32_input=False):
         L = H * W
         A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
         if name == "K9a":  # u, delta, A, B, C, D, chunk, pre_softplus
@@ -270,8 +272,9 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
             return (rn(B, H, W, C, dt=dtype), rn(C, 3 * C, s=0.125), rn(C, C, s=0.125),
                     1 + rn(C, s=0.2), rn(C, s=0.1), rn(T, heads * T, s=0.02),
                     torch.full((1,), 0.25, device=dev))
-        return (rn(B, H, W, C, dt=dtype), 1 + rn(C, s=0.2), rn(C, s=0.1),
-                rn(c4, C, s=0.125, dt=dtype), rn(C - c4, C, s=0.125, dt=dtype),
+        # K7: x float32 in its float32-input mode (the block's residual stream)
+        return (rn(B, H, W, C, dt=torch.float32 if f32_input else dtype), 1 + rn(C, s=0.2),
+                rn(C, s=0.1), rn(c4, C, s=0.125, dt=dtype), rn(C - c4, C, s=0.125, dt=dtype),
                 rn(3, 3, C - c4, s=0.3, dt=dtype))
 
     def mosaic(hr):  # a whole-scene dispatch: 4 mosaics of 5x5 LR views padded
@@ -279,14 +282,16 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
     main = (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
-            ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K9a", "K9b", "K9c", "K10")),
+            ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c",
+                                      "K10")),
             ("synth", mosaic(SYNTH_HR),
              ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10")),
-            ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K9b", "K9c", "K10")))
+            ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c", "K10")))
     for where, shape, names in () if n24_only else main:
         for name in names:
             if only is None or name in only:
-                yield name, where, operands(name, *shape)
+                yield name, where, operands(name, *shape,
+                                            f32_input=name == "K7" and where in ("tiled", "real"))
                 if name == "K9a":
                     yield name, f"{where}/raw", operands(name, *shape, raw=True)
     if (only is None or "K8" in only) and not n24_only:
@@ -373,7 +378,10 @@ def bound(name: str, args, outs) -> tuple[float, str, float]:
     rest on the CUDA cores at F32_FLOPS. Returns (ms, what sets it, the
     CUDA-core floor in ms: all of the FLOPs as float32 on the CUDA cores)."""
     nbytes, mm, other = work(name, args, outs)
-    mm_peak = BF16_TENSOR_FLOPS if args[0].dtype == torch.bfloat16 else TF32_TENSOR_FLOPS
+    # the products' operands: K7's weights (its float32-input mode multiplies
+    # bf16 xn and rest by bf16 weights), else the first input's dtype
+    mm_dtype = (args[3] if name == "K7" else args[0]).dtype
+    mm_peak = BF16_TENSOR_FLOPS if mm_dtype == torch.bfloat16 else TF32_TENSOR_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_S, mm / mm_peak + other / F32_FLOPS
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, 1e3 * (mm + other) / F32_FLOPS
@@ -460,22 +468,33 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8" else "synth")
             for k in pairs}
+    # the kernels with two paths: (module counting them, which one a call takes)
+    path_of = {
+        "K5": (cs, lambda a: cs.kernel_path(a[1].dtype, a[1].shape[-1])),
+        "K6": (wa, lambda a: wa.kernel_path(a[0].shape[-1], 4, 8)),
+        "K7": (block, lambda a: block.kernel_path(a[3].dtype)),
+        "K8": (ma, lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4])),
+    }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g, only, n24_only):
             kern, plain = pairs[name]
             big = where in WHOLE and name in SCANS
-            k8_before, k6_before = dict(ma.PATH_LAUNCHES), dict(wa.PATH_LAUNCHES)
+            before = dict(path_of[name][0].PATH_LAUNCHES) if name in path_of else None
             got = kern(*args)
             torch.cuda.synchronize()
-            if name in ("K6", "K8"):  # which of its two kernels took the call
-                mod, before = (wa, k6_before) if name == "K6" else (ma, k8_before)
-                path = (wa.kernel_path(args[0].shape[-1], 4, 8) if name == "K6"
-                        else ma.kernel_path(dtype, args[0].shape[-1] // args[4]))
-                assert mod.PATH_LAUNCHES[path] == before[path] + 1, mod.PATH_LAUNCHES
-                assert name != "K6" or path == "mma", "the flagship's K6 takes the tensor cores"
+            path = None
+            if name in path_of:  # which of its two kernels took the call
+                mod, rule = path_of[name]
+                path = rule(args)
+                assert mod.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}, (
+                    name, mod.PATH_LAUNCHES)
+                # the flagship's K6, and K5 and K7 in bf16, take the tensor cores
+                assert path == "mma" or name == "K8" or (
+                    name != "K6" and dtype == torch.float32), (name, dtype, path)
                 log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the "
-                    f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})")
+                    f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})"
+                    + (f", x {str(args[0].dtype)[6:]}" if name == "K7" else ""))
             if name == "K1" and dtype == torch.bfloat16:
                 k1_passes(args, where)
             if name == "K3":
@@ -517,7 +536,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
             if (dtype, where) == main[name]:
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": library_ms}
+                                 "library_ms": library_ms, **({"path": path} if path else {})}
             del args
             torch.cuda.empty_cache()
 
@@ -623,11 +642,11 @@ def per_step(impl: str = "pallas") -> dict:
     return {**out, SCAN_IMPL_KERNELS[impl]: PER_STEP["K2 selective_scan_proj_states"]}
 
 
-def eval_launches(forwards: int, k7_forwards: int, impl: str = "pallas") -> dict:
-    """Launches of ``forwards`` eval forwards, ``k7_forwards`` of them at
-    K7's gate (K2 and K3 do not run in eval)."""
-    return {k: n * (k7_forwards if k == "K7 ln_msl" else forwards)
-            for k, n in per_forward(impl).items()}
+def eval_launches(forwards: int, impl: str = "pallas") -> dict:
+    """Launches of ``forwards`` eval forwards (K2 and K3 do not run in
+    eval; K7 runs on every map, in its float32-input mode below the TPU's
+    gate)."""
+    return {k: n * forwards for k, n in per_forward(impl).items()}
 
 
 def k8_kernel(cfg):
@@ -643,13 +662,26 @@ def k8_kernel(cfg):
 def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     """Every kernel's launches == ``want`` (0 for a kernel it does not list);
     every K6 launch (the flagship's: 64 channels, 4 heads of 16) on its
-    tensor-core kernel; for ``cfg``'s EPIT, every K8 launch by the kernel
+    tensor-core kernel; every K5 and K7 launch on its tensor-core kernel in
+    bf16 (``cfg`` None: the flagship's default, bf16) and on its CUDA-core
+    one in float32; for ``cfg``'s EPIT, every K8 launch by the kernel
     ``k8_kernel`` names."""
-    from lfsr_tpu_torch.ops import K6_PATH_LAUNCHES, PATH_LAUNCHES
+    from lfsr_tpu_torch.ops import (
+        K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES, PATH_LAUNCHES,
+    )
 
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
+    bf16 = cfg is None or cfg.compute_dtype == "bfloat16"
+    for name, paths in (("K5 cross_scan_scatter", K5_PATH_LAUNCHES),
+                        ("K7 ln_msl", K7_PATH_LAUNCHES)):
+        n = counts[name]
+        assert paths == ({"mma": n, "fma": 0} if bf16 else {"mma": 0, "fma": n}), (
+            what, name, paths, n)
+        if n:
+            log(f"[{what}] {name.split()[0]} launches by kernel {paths}: all {n} on the "
+                f"{'tensor-core' if bf16 else 'CUDA-core'} kernel")
     k6 = counts["K6 window_mha_fused"]
     assert K6_PATH_LAUNCHES == {"mma": k6, "fma": 0}, (what, K6_PATH_LAUNCHES, k6)
     if k6:
@@ -718,7 +750,7 @@ def run_tiled(model, cfg, per_dispatch: dict, what: str = "tiled") -> dict:
 def whole_dispatches(model, cfg, synth: list, real: list, what: str, impl: str = "pallas"):
     """Whole-scene ``evaluate_sets`` of ``cfg``, one dispatch per geometry
     (both warmed up first), each between its own count reset and read:
-    launch counts per dispatch (K7 on the square Synth mosaic only), finite
+    launch counts per dispatch (K7 12 on both geometries), finite
     SR and metrics, ms/scene and peak memory. Returns the launches of both
     and, per geometry, (scene 0's SR views, ms/scene, peak GiB)."""
     from lfsr_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
@@ -732,7 +764,7 @@ def whole_dispatches(model, cfg, synth: list, real: list, what: str, impl: str =
 
     total = dict.fromkeys(KERNELS, 0)
     out = {}
-    for subset, scenes, k7 in (("Synth", synth, 1), ("Real", real, 0)):
+    for subset, scenes in (("Synth", synth), ("Real", real)):
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -740,7 +772,7 @@ def whole_dispatches(model, cfg, synth: list, real: list, what: str, impl: str =
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-        check_counts(counts, eval_launches(1, k7, impl), f"{what} {subset}")
+        check_counts(counts, eval_launches(1, impl), f"{what} {subset}")
         total = {k: total[k] + counts[k] for k in total}
         check_views(res[subset]["views"], scenes, ang, s, f"{what} {subset}")
         assert np.isfinite(res[subset]["psnr"]) and np.isfinite(res[subset]["ssim"]), res
@@ -851,8 +883,7 @@ def run_submission(model, synth: list, real: list) -> None:
                                log=lambda m: None)
         seconds = time.perf_counter() - t0
         zip_mb = (Path(tmp) / "sub.zip").stat().st_size / 2**20
-    check_counts(launch_counts(), eval_launches(sum(dispatches.values()), dispatches["Synth"]),
-                 "submission")
+    check_counts(launch_counts(), eval_launches(sum(dispatches.values())), "submission")
     log(f"[submission] {len(synth)} Synth + {len(real)} Real scenes -> BMP tree + "
         f"{zip_mb:.1f} MiB zip in {seconds:.1f} s; validator: {rep.checks} checks, "
         f"{len(rep.errors)} errors, {len(rep.warnings)} warnings ({CARD})")
@@ -1088,7 +1119,7 @@ def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
         return add(*launches)
     if profile:
         profile_tiled_dispatch(model, cfg)
-    tiled = run_tiled(model, Config(whole_scene_for_test=False), eval_launches(1, 0))
+    tiled = run_tiled(model, Config(whole_scene_for_test=False), eval_launches(1))
     lap("tiled")
 
     synth, real = flagship_scenes()

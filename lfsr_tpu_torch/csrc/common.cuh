@@ -86,6 +86,26 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// acc[nt] += a . B over the 16 k of this step, for all NT n-tiles, with B
+// held transposed in shared memory (bt: row n is output column n, k0 the
+// step's first k, ld the row pitch: 16 x an odd number of bytes keeps it
+// conflict-free); one ldmatrix.x4 gives the B fragments of two n-tiles
+template <int NT>
+__device__ __forceinline__ void mma_bt(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* bt, int ld, int k0, int lane) {
+  static_assert(NT % 2 == 0, "n-tiles go in pairs");
+  // lane l: row l % 8 of matrix l / 8 = (n-tile pair half l / 16, k half (l / 8) % 2)
+  const __nv_bfloat16* p =
+      bt + (((lane >> 4) << 3) + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; nt += 2) {
+    uint32_t b[4];
+    ldmatrix_x4(b, p + nt * 8 * ld);
+    mma_bf16(acc[nt], a, b[0], b[1]);
+    mma_bf16(acc[nt + 1], a, b[2], b[3]);
+  }
+}
+
 // two floats rounded to bf16 and packed, the first low
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -98,6 +118,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem));
 }
+// 8 bytes global -> shared (the .ca form: .cg takes 16 bytes only)
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(gmem));
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
@@ -109,6 +134,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// A 4 x 4 transpose inside each quad (t = lane % 4): lane t holds v[k] =
+// M[t][k] on entry and M[k][t] on return. Applied to an mma accumulator's
+// values for 4 consecutive n-tiles, it leaves lane t with the 8 columns of
+// n-tile t (columns 2k, 2k + 1 in v[k]): one 16-byte granule of a row.
+// Every lane of the warp must take part.
+template <typename V>
+__device__ __forceinline__ void quad_transpose(V (&v)[4], int t) {
+  V s0 = (t & 2) ? v[0] : v[2], s1 = (t & 2) ? v[1] : v[3];
+  V r0 = __shfl_xor_sync(0xffffffffu, s0, 2), r1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (t & 2) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
+  s0 = (t & 1) ? v[0] : v[1];
+  s1 = (t & 1) ? v[2] : v[3];
+  r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+  r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  if (t & 1) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
+}
+
+// a * b and a + b on bf16x2, each rounded once to nearest even (PyTorch's
+// bf16 multiply and add). The .rn modifier matters: ptxas may fuse an
+// unmodified bf16x2 mul and add (what __hmul2/__hadd2 emit) into one fma,
+// which rounds once for both.
+__device__ __forceinline__ uint32_t mul_rn_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_rn_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// float -> bf16 -> float (round to nearest even)
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // bf16x3's split of two floats: hi = (bf16(a), bf16(b)) packed, lo = the

@@ -13,11 +13,11 @@ The kernels on this model's path run as the port's CUDA kernels on CUDA
 tensors: K1 (Mamba scan; K2/K3 forward and adjoint when a gradient is
 wanted; K9b or K9c in its place under ``model_kwargs={'scan_impl': 'gated'
 | 'fused'}``), K4/K5 (cross-scan gather and scatter), K6 (window
-attention), on blocks at or above its gate (whole-scene square mosaics,
-batch-8 training patches) K7 (LayerNorm + local branch), and once per
-forward K10 (the HLFR tail: expansion matmul + lrelu + the folded
-out-conv). ``module.train()`` turns on the blocks' dropout (JAX
-``train=True``).
+attention), K7 (LayerNorm + local branch: on the float32 residual stream
+below the TPU's gate, on it rounded to the compute dtype at the gate, so
+JAX's two branches), and once per forward K10 (the HLFR tail: expansion
+matmul + lrelu + the folded out-conv). ``module.train()`` turns on the
+blocks' dropout (JAX ``train=True``).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from lfsr_tpu_torch.models.common import (
 from lfsr_tpu_torch.models.losses import composite_v8_builder
 from lfsr_tpu_torch.models.registry import register_model
 from lfsr_tpu_torch.models.ssm import Mamba
-from lfsr_tpu_torch.ops.block import ln_msl, ln_msl_supported
+from lfsr_tpu_torch.ops.block import ln_msl, ln_msl_supported, ln_msl_takes
 from lfsr_tpu_torch.ops.cross_scan import (
     cross_scan_gather, cross_scan_scatter, layer_norm_fast,
 )
@@ -173,13 +173,16 @@ class LFVSSMBlock(nn.Module):
     def forward(self, x, generator: torch.Generator | None = None):
         c, dt = self.feats, self.dtype
         ln, msl = self.LayerNorm_0, self.MultiScaleLocal_0
-        if ln_msl_supported(x):  # the gate reads the float32 residual stream
-            # K7: x is cast to the compute dtype before the LayerNorm, as on
-            # the TPU; the head 1x1 is folded through the mix as in msl
+        if ln_msl_takes(x, msl.c):
+            # K7, the head 1x1 folded through the mix as in msl. At the TPU's
+            # gate (it reads the float32 residual stream) x is cast to the
+            # compute dtype before the LayerNorm, as JAX's K7 branch does;
+            # elsewhere K7 takes x in float32, which is JAX's plain branch
             c4 = msl.c
             wh, wm = mix_kernel(msl.Conv_0, dt), mix_kernel(msl.Conv_2, dt)
             wk = msl.Conv_1.weight[:, 0].permute(1, 2, 0).to(dt)  # [3, 3, C-c4]
-            xn, local = ln_msl(x.to(dt).contiguous(), ln.weight, ln.bias,
+            xin = x.to(dt) if ln_msl_supported(x) else x.float()
+            xn, local = ln_msl(xin.contiguous(), ln.weight, ln.bias,
                                (wh @ wm[:c4]).contiguous(), wm[c4:].contiguous(),
                                wk.contiguous())
         else:

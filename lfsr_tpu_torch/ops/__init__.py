@@ -5,13 +5,16 @@ plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
 scan's autograd Function (``scan.ScanProj``) and K4-K8, K9a-K9c and K10
 inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace; K8's ``PATH_LAUNCHES``
-and K6's ``K6_PATH_LAUNCHES`` split their launches between each one's
-tensor-core and CUDA-core kernels.
+and K5's, K6's and K7's ``K5_PATH_LAUNCHES``, ``K6_PATH_LAUNCHES`` and
+``K7_PATH_LAUNCHES`` split their launches between each one's tensor-core
+(``"mma"``) and CUDA-core (``"fma"``) kernels.
 """
 
 from __future__ import annotations
 
+from lfsr_tpu_torch.ops.block import PATH_LAUNCHES as K7_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.block import ln_msl
+from lfsr_tpu_torch.ops.cross_scan import PATH_LAUNCHES as K5_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.head import hlfr_tail
 from lfsr_tpu_torch.ops.masked_attention import PATH_LAUNCHES, masked_mha_fused
@@ -76,7 +79,8 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
-    for counts in (PATH_LAUNCHES, K6_PATH_LAUNCHES):  # K8's and K6's per-kernel counts
+    # K8's, K5's, K6's and K7's per-kernel counts
+    for counts in (PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES):
         for path in counts:
             counts[path] = 0
 

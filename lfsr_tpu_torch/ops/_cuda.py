@@ -66,6 +66,8 @@ _SIGNATURES = {
     "lfsr_cross_scan_gather": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     # seq, x, w, scale, out, B, H, W, C, dtype, stream
     "lfsr_cross_scan_scatter": [_P] * 5 + [_I] * 5 + [_P],
+    # seq, x, w, scale, out, B, H, W, C, tile rows, tile columns, stream
+    "lfsr_cross_scan_scatter_mma": [_P] * 5 + [_I] * 6 + [_P],
     # x, wqkv, wout, ln_g, ln_b, bias, scale, y, B, H, W, C, ws, heads,
     # qscale, eps, dtype, stream
     "lfsr_window_mha": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
@@ -73,8 +75,8 @@ _SIGNATURES = {
     # eps, CTAs, windows a CTA, shared-memory bytes, dtype, stream
     "lfsr_window_mha_mma": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _S, _I, _P],
     # x, gamma, beta, whm, wrest, wk, xn, local, B, H, W, C, c4, slope, eps,
-    # dtype, stream
-    "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
+    # x dtype, dtype (of the weights and outputs), stream
+    "lfsr_ln_msl": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # q, k, v, mask transposed, o, B, L, D, heads, qscale, dtype, stream
     "lfsr_masked_mha": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # q, k, v, mask (row-major), o, B, L, D, heads, qscale, stream

@@ -12,6 +12,11 @@ column-major.
 
 On CUDA tensors the wrappers launch the kernels in csrc/cross_scan.cu; on
 CPU tensors they run the plain twins (ports of the ``_ref`` functions).
+K5 has two kernels, chosen by :func:`kernel_path`: ``"mma"`` (bfloat16, C
+a multiple of 16: the mix on the tensor cores, 2-D tiles of
+:func:`scatter_tile` pixels read from seq in runs of consecutive positions)
+and ``"fma"`` (the rest: CUDA cores); ``PATH_LAUNCHES`` counts each. The
+choice is a rule, not a fallback: a kernel that fails to launch raises.
 When a gradient is wanted they go through ``_cuda.PlainVJP``: the kernel
 forward, the plain twin's gradient (the JAX custom_vjps at
 pallas_layout.py:302-311 and :430-439 differentiate the XLA reference).
@@ -24,6 +29,8 @@ import torch
 from lfsr_tpu_torch.ops import _cuda
 
 EPS = 1e-6
+# K5's launches of each kernel (their sum is cross_scan_scatter.launches)
+PATH_LAUNCHES = {"mma": 0, "fma": 0}
 
 
 def layer_norm_fast(x: torch.Tensor, gamma, beta, eps: float = EPS) -> torch.Tensor:
@@ -68,6 +75,22 @@ def cross_scan_scatter_plain(seq, x, w, scale):
     b, h, wd, c = x.shape
     y = _unpermute(seq, h, wd).to(w.dtype) @ w
     return (x.float() + scale.float() * y.float()).to(x.dtype)
+
+
+def kernel_path(dtype: torch.dtype, c: int) -> str:
+    """Which K5 kernel takes a call: ``"mma"`` (tensor cores) for bfloat16
+    with C a multiple of 16, else ``"fma"`` (CUDA cores)."""
+    return "mma" if dtype == torch.bfloat16 and c % 16 == 0 else "fma"
+
+
+def scatter_tile(c: int) -> tuple[int, int]:
+    """(rows, columns) of the pixel tile a K5 "mma" CTA takes at C channels:
+    16 x 16 up to 64 channels, 8 x 16 above. Its shared memory (W^T and two
+    tiles, csrc/cross_scan.cu ``scatter_mma::smem_bytes``) is then 83 KB at
+    64 channels and 102 KB at 128: two CTAs an SM. Quarters 0 and 1 read
+    runs of 16 consecutive sequence positions along tile rows, 2 and 3 runs
+    of 16 (8) along tile columns."""
+    return (16 if c <= 64 else 8), 16
 
 
 @_cuda.counted
@@ -118,7 +141,16 @@ def _scatter(seq, x, w, scale):
     if c % 4 or c > 128:
         raise ValueError(f"cross-scan kernels take C % 4 == 0 and C <= 128, got C={c}")
     out = torch.empty_like(x)
-    _cuda.launch("lfsr_cross_scan_scatter", seq.data_ptr(), x.data_ptr(), w.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(), b, h, wd, c, code, _cuda.stream_of(x))
+    path = kernel_path(x.dtype, c)
+    if path == "mma":
+        if any(t.data_ptr() % 16 for t in (seq, x, out)):
+            raise ValueError("cross_scan_scatter: seq, x and out must be 16-byte aligned")
+        th, tw = scatter_tile(c)
+        _cuda.launch("lfsr_cross_scan_scatter_mma", seq.data_ptr(), x.data_ptr(), w.data_ptr(),
+                     scale.data_ptr(), out.data_ptr(), b, h, wd, c, th, tw, _cuda.stream_of(x))
+    else:
+        _cuda.launch("lfsr_cross_scan_scatter", seq.data_ptr(), x.data_ptr(), w.data_ptr(),
+                     scale.data_ptr(), out.data_ptr(), b, h, wd, c, code, _cuda.stream_of(x))
     cross_scan_scatter.launches += 1
+    PATH_LAUNCHES[path] += 1
     return out

@@ -135,11 +135,21 @@ def test_engaged_block_matches_jax_k7_block(k7_interpret, monkeypatch, block_pai
     np.testing.assert_allclose(got.numpy(), want, atol=BLOCK_BF16_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("shape,called", [((2, 16, 16, 32), True), ((1, 16, 16, 32), False),
-                                          ((2, 16, 24, 32), False)],
-                         ids=["engaged", "below_gate", "non_square"])
-def test_block_calls_k7_only_at_the_gate(monkeypatch, block_pair, shape, called):
-    _, _, tblock = block_pair
+@pytest.fixture(scope="module")
+def block_pair_24():
+    return _block_pair(C=24)
+
+
+@pytest.mark.parametrize("shape,called", [
+    ((2, 16, 16, 32), [torch.bfloat16]), ((1, 16, 16, 32), [torch.float32]),
+    ((2, 16, 24, 32), [torch.float32]), ((2, 16, 16, 24), [])],
+    ids=["engaged", "below_gate", "non_square", "c24"])
+def test_block_calls_k7_only_at_the_gate(monkeypatch, request, shape, called):
+    """K7 takes every block whose C it takes (a multiple of 16 up to 128):
+    with x rounded to bf16 at the TPU's gate (JAX's K7 branch), in float32
+    below it and on a non-square map (the float32-input mode: JAX's plain
+    branch); at C 24 the block runs the plain modules."""
+    _, _, tblock = request.getfixturevalue("block_pair_24" if shape[-1] == 24 else "block_pair")
     monkeypatch.setattr(block, "LN_MSL_MIN_PIXELS", 2 * 16 * 16)
     seen = []
 
@@ -151,4 +161,4 @@ def test_block_calls_k7_only_at_the_gate(monkeypatch, block_pair, shape, called)
     with torch.inference_mode():
         y = tblock(torch.from_numpy(_rn(*shape)))
     assert y.shape == shape and torch.isfinite(y).all()
-    assert seen == ([torch.bfloat16] if called else [])
+    assert seen == called

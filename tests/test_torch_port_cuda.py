@@ -23,7 +23,11 @@ two kernels by shape (the tensor-core one at the flagship's head dim 16 and
 at 8, the CUDA-core one at 4 and 18), two of its calls bit-equal. The scans
 at d_state 24 (V7's default): K1, K2 and K3 at every length case beside
 4-32, and K1, K2, K3, K9a, K9b and K9c at V7's widths (Di 90, dt rank 5)
-and at an odd one (Di 37, rank 3).
+and at an odd one (Di 37, rank 3). K7's tensor-core kernel with x in bf16
+and in float32 (its float32-input mode) and K5's, at 1 x 17 x 23, the
+tiled, Real and 644 x 644 maps and C 16 to 128, K7's taps bit-equal to the
+twin's on its own xn, both CUDA-core kernels, each call's ``PATH_LAUNCHES``,
+and a block below the TPU's gate on K7's float32-input mode.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -574,3 +578,140 @@ def test_scans_refuse_a_d_state_outside_the_set(cuda, N):
     A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(16, 1).cuda()
     with pytest.raises(ValueError, match=r"\(4, 8, 16, 24, 32\)"):
         kern(u, dbc, Wdt, bdt, A, D)
+
+
+# ---- K7 and K5 on the tensor cores, and their CUDA-core paths ----------------
+
+K57_SHAPES = [(1, 17, 23), (2, 160, 160), (4, 640, 880), (4, 644, 644)]
+K57_IDS = ["1x17x23", "tiled", "real", "644"]
+
+
+def _rc(g, *shape, s=1.0, dtype=torch.float32):
+    """Normal values made on the card (the larger maps are ~1 GB)."""
+    return (torch.randn(*shape, generator=g, device="cuda") * s).to(dtype)
+
+
+def _k7_args(g, x_dtype, w_dtype, B, H, W, C):
+    c4 = C // 4
+    return (_rc(g, B, H, W, C, dtype=x_dtype), 1 + _rc(g, C, s=0.2), _rc(g, C, s=0.1),
+            _rc(g, c4, C, s=C**-0.5, dtype=w_dtype), _rc(g, C - c4, C, s=C**-0.5, dtype=w_dtype),
+            _rc(g, 3, 3, C - c4, s=0.3, dtype=w_dtype))
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", K57_SHAPES, ids=K57_IDS)
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_input", "f32_input"])
+def test_k7_mma_holds_its_twin(cuda, x_dtype, shape, C):
+    """bf16 weights take the tensor-core kernel with x in bf16 (the TPU's
+    gate) or float32 (the float32-input mode), at ragged, tiled, Real and
+    non-8-aligned maps and C 16 to 128 (c4 = C / 4: 4, 8, 16, 32)."""
+    g = torch.Generator(device="cuda").manual_seed(20 + C)
+    args = _k7_args(g, x_dtype, torch.bfloat16, *shape, C)
+    before = dict(block.PATH_LAUNCHES)
+    got = block.ln_msl(*args)
+    torch.cuda.synchronize()
+    assert block.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    want = block.ln_msl_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        err, scale = _cuda.twin_error(a, b)
+        assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_input", "f32_input"])
+@pytest.mark.parametrize("shape,C", [((2, 160, 160), 64), ((1, 17, 23), 32), ((1, 40, 72), 48)],
+                         ids=["tiled", "ragged", "c48"])
+def test_k7_taps_equal_the_twins_bit_for_bit(cuda, x_dtype, shape, C):
+    """The kernel's 9 taps (bf16x2 multiply, add, each rounded once) against
+    the twin's on the kernel's own xn: with whm 0 and wrest 64 times the
+    identity (rest channel j to output channel c4 + j) both products are
+    exact, so local = round(lrelu(64 rest) + xn) must equal the twin's
+    bit for bit (64 rest sets the sum's exponent, so a tap an ulp off would
+    show)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, gamma, beta, _, _, wk = _k7_args(g, x_dtype, torch.bfloat16, *shape, C)
+    c4 = C // 4
+    whm = torch.zeros(c4, C, dtype=torch.bfloat16, device="cuda")
+    wrest = torch.zeros(C - c4, C, dtype=torch.bfloat16, device="cuda")
+    wrest[:, c4:] = 64 * torch.eye(C - c4, dtype=torch.bfloat16, device="cuda")
+    xn, local = block.ln_msl(x, gamma, beta, whm, wrest, wk)
+    torch.cuda.synchronize()
+    assert torch.equal(local, block.msl_plain(xn, whm, wrest, wk))
+
+
+@pytest.mark.parametrize("shape", [(1, 17, 23), (2, 160, 160), (2, 40, 72)],
+                         ids=["ragged", "tiled", "non_square"])
+def test_k7_f32_takes_the_cuda_core_kernel(cuda, shape):
+    g = torch.Generator(device="cuda").manual_seed(8)
+    args = _k7_args(g, torch.float32, torch.float32, *shape, 64)
+    before = dict(block.PATH_LAUNCHES)
+    got = block.ln_msl(*args)
+    torch.cuda.synchronize()
+    assert block.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    for a, b in zip(got, block.ln_msl_plain(*args)):
+        assert a.dtype == torch.float32
+        err, scale = _cuda.twin_error(a, b)
+        assert err <= TOL[torch.float32] * scale, err
+
+
+def test_k7_refuses_bf16_x_with_float32_weights(cuda):
+    args = _k7_args(torch.Generator(device="cuda").manual_seed(9), torch.bfloat16,
+                    torch.float32, 1, 16, 16, 64)
+    with pytest.raises(ValueError, match="float32-input"):
+        block.ln_msl(*args)
+
+
+def _k5_args(g, dtype, B, H, W, C):
+    return (_rc(g, B, H * W, C, dtype=dtype), _rc(g, B, H, W, C, dtype=dtype),
+            _rc(g, C, C, s=C**-0.5, dtype=dtype), torch.full((1,), 0.15, device="cuda"))
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", K57_SHAPES, ids=K57_IDS)
+def test_k5_mma_holds_its_twin(cuda, shape, C):
+    """bf16 at C a multiple of 16 takes the tensor-core kernel (2-D tiles,
+    the permutation in the copy's addresses), ragged edges and H != W
+    masked; y stays float32 there, the twin rounds it (3e-2 of scale)."""
+    args = _k5_args(torch.Generator(device="cuda").manual_seed(30 + C), torch.bfloat16,
+                    *shape, C)
+    before = dict(cross_scan.PATH_LAUNCHES)
+    got = cross_scan.cross_scan_scatter(*args)
+    torch.cuda.synchronize()
+    assert cross_scan.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    err, scale = _cuda.twin_error(got, cross_scan.cross_scan_scatter_plain(*args))
+    assert err <= TOL[torch.bfloat16] * scale, err
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 64), (torch.float32, 16),
+                                     (torch.bfloat16, 20), (torch.bfloat16, 36)])
+@pytest.mark.parametrize("shape", [(1, 17, 23), (2, 40, 72)], ids=["ragged", "non_square"])
+def test_k5_cuda_core_kernel_takes_the_rest(cuda, dtype, C, shape):
+    args = _k5_args(torch.Generator(device="cuda").manual_seed(31), dtype, *shape, C)
+    before = dict(cross_scan.PATH_LAUNCHES)
+    got = cross_scan.cross_scan_scatter(*args)
+    torch.cuda.synchronize()
+    assert cross_scan.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    err, scale = _cuda.twin_error(got, cross_scan.cross_scan_scatter_plain(*args))
+    assert err <= TOL[dtype] * scale, err
+
+
+def test_block_below_the_k7_gate_takes_k7_on_float32_x(cuda):
+    """A block on a map below the TPU's gate (a non-square tiled-size map)
+    runs K7 in its float32-input mode, on the tensor cores, and holds its
+    plain twins."""
+    cfg = Config(compute_dtype="bfloat16")
+    model = get_model(cfg, device=cuda)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    x = torch.randn(2, 40, 72, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    assert not block.ln_msl_supported(x)
+    before = dict(block.PATH_LAUNCHES)
+    with torch.inference_mode():
+        got = model.block_0(x)
+        torch.cuda.synchronize()
+        with _cuda.force_plain():
+            want = model.block_0(x)
+    assert block.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    err, scale = _cuda.twin_error(got, want)
+    assert err <= TOL[torch.bfloat16] * scale, err

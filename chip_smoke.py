@@ -38,7 +38,8 @@ Phases (any failure exits non-zero):
    yardstick, used nowhere in the port), and which of K8's two kernels
    took each call (bf16: the tensor-core one; float32: the CUDA-core one),
    and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
-   and K7's (bf16: the tensor-core ones). K1, K2,
+   and K7's (bf16: the tensor-core ones), of K4's (every flagship call,
+   bf16 and float32: the tile kernel). K1, K2,
    K3, K9a, K9b and K9c at d_state 24 (EfficientLFNetV7's default, at its
    widths: [8, 25600, 90], dt rank 5).
    K1 (bf16) also logs its chunk length Tc and the time of each of its
@@ -55,7 +56,8 @@ Phases (any failure exits non-zero):
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
    untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
    step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0; every K5 and K7 launch on
-   its tensor-core kernel), finite loss/PSNR/SSIM,
+   its tensor-core kernel, every K4 launch of every phase, the float32
+   gradient checks too, on its tile kernel), finite loss/PSNR/SSIM,
    ms/step, steps/s, peak memory. A batch holding a NaN must leave the
    parameters and the optimizer's inner state as they were. One float32
    step's parameter gradients on the kernels against the plain twins
@@ -170,6 +172,8 @@ HBM_BYTES_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
+# what each kernel path is, in the log
+PATH_NAMES = {"mma": "tensor-core", "fma": "CUDA-core", "tile": "tile", "warp": "one-warp"}
 
 
 def log(msg: str) -> None:
@@ -468,33 +472,34 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8" else "synth")
             for k in pairs}
-    # the kernels with two paths: (module counting them, which one a call takes)
+    # the kernels with two paths: (the dict counting them, which one a call
+    # takes); K4 and K5 share a module, each with its own counter
     path_of = {
-        "K5": (cs, lambda a: cs.kernel_path(a[1].dtype, a[1].shape[-1])),
-        "K6": (wa, lambda a: wa.kernel_path(a[0].shape[-1], 4, 8)),
-        "K7": (block, lambda a: block.kernel_path(a[3].dtype)),
-        "K8": (ma, lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4])),
+        "K4": (cs.GATHER_PATH_LAUNCHES, lambda a: cs.gather_path(a[0].dtype, a[0].shape[-1])),
+        "K5": (cs.PATH_LAUNCHES, lambda a: cs.kernel_path(a[1].dtype, a[1].shape[-1])),
+        "K6": (wa.PATH_LAUNCHES, lambda a: wa.kernel_path(a[0].shape[-1], 4, 8)),
+        "K7": (block.PATH_LAUNCHES, lambda a: block.kernel_path(a[3].dtype)),
+        "K8": (ma.PATH_LAUNCHES, lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4])),
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g, only, n24_only):
             kern, plain = pairs[name]
             big = where in WHOLE and name in SCANS
-            before = dict(path_of[name][0].PATH_LAUNCHES) if name in path_of else None
+            before = dict(path_of[name][0]) if name in path_of else None
             got = kern(*args)
             torch.cuda.synchronize()
             path = None
             if name in path_of:  # which of its two kernels took the call
-                mod, rule = path_of[name]
+                counts, rule = path_of[name]
                 path = rule(args)
-                assert mod.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}, (
-                    name, mod.PATH_LAUNCHES)
-                # the flagship's K6, and K5 and K7 in bf16, take the tensor cores
-                assert path == "mma" or name == "K8" or (
-                    name != "K6" and dtype == torch.float32), (name, dtype, path)
-                log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the "
-                    f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel ({path})"
-                    + (f", x {str(args[0].dtype)[6:]}" if name == "K7" else ""))
+                assert counts == {k: v + (k == path) for k, v in before.items()}, (name, counts)
+                # the flagship's K4 takes its tile kernel; K6, and K5 and K7
+                # in bf16, take the tensor cores
+                assert (path == "tile" if name == "K4" else path == "mma" or name == "K8" or (
+                    name != "K6" and dtype == torch.float32)), (name, dtype, path)
+                log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the {PATH_NAMES[path]} "
+                    f"kernel ({path})" + (f", x {str(args[0].dtype)[6:]}" if name == "K7" else ""))
             if name == "K1" and dtype == torch.bfloat16:
                 k1_passes(args, where)
             if name == "K3":
@@ -661,18 +666,23 @@ def k8_kernel(cfg):
 
 def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     """Every kernel's launches == ``want`` (0 for a kernel it does not list);
-    every K6 launch (the flagship's: 64 channels, 4 heads of 16) on its
-    tensor-core kernel; every K5 and K7 launch on its tensor-core kernel in
-    bf16 (``cfg`` None: the flagship's default, bf16) and on its CUDA-core
-    one in float32; for ``cfg``'s EPIT, every K8 launch by the kernel
-    ``k8_kernel`` names."""
+    every K4 launch (the flagship's 64 channels, bf16 or float32) on its
+    tile kernel; every K6 launch (the flagship's: 64 channels, 4 heads of
+    16) on its tensor-core kernel; every K5 and K7 launch on its
+    tensor-core kernel in bf16 (``cfg`` None: the flagship's default, bf16)
+    and on its CUDA-core one in float32; for ``cfg``'s EPIT, every K8
+    launch by the kernel ``k8_kernel`` names."""
     from lfsr_tpu_torch.ops import (
-        K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES, PATH_LAUNCHES,
+        K4_PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES, PATH_LAUNCHES,
     )
 
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
+    k4 = counts["K4 cross_scan_gather"]
+    assert K4_PATH_LAUNCHES == {"tile": k4, "warp": 0}, (what, K4_PATH_LAUNCHES, k4)
+    if k4:
+        log(f"[{what}] K4 launches by kernel {K4_PATH_LAUNCHES}: all {k4} on the tile kernel")
     bf16 = cfg is None or cfg.compute_dtype == "bfloat16"
     for name, paths in (("K5 cross_scan_scatter", K5_PATH_LAUNCHES),
                         ("K7 ln_msl", K7_PATH_LAUNCHES)):

@@ -86,6 +86,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// Two 8x8 bf16 matrices: lanes 0-15 give the row addresses (lane l: row
+// l % 8 of matrix l / 8); the other lanes' addresses are not read
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
 // acc[nt] += a . B over the 16 k of this step, for all NT n-tiles, with B
 // held transposed in shared memory (bt: row n is output column n, k0 the
 // step's first k, ld the row pitch: 16 x an odd number of bytes keeps it
@@ -117,6 +125,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(gmem));
+}
+// 16 bytes global -> shared, or 16 zero bytes where !valid (src-size 0:
+// nothing is read; gmem must still be a valid address)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(gmem),
+               "r"(valid ? 16 : 0));
 }
 // 8 bytes global -> shared (the .ca form: .cg takes 16 bytes only)
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
@@ -207,6 +222,29 @@ __host__ __device__ constexpr int scan_lanes(int N) { return N <= 8 ? 1 : N <= 2
 __host__ __device__ constexpr int state_span(int N) {
   return N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32;
 }
+
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 in 32-bit integer arithmetic:
+// umulhi(n, m) >> s with m = ceil(2^(31 + l) / d), l = ceil(log2 d), s =
+// l - 1 (Granlund-Montgomery, as CUTLASS's FastDivmod); d = 1 passes n.
+// Made on the host, so a kernel's loops divide by a runtime H or W without
+// the tens of instructions of a software division.
+struct FastDiv {
+  int d;
+  unsigned m;
+  int s;
+  FastDiv() = default;
+  __host__ explicit FastDiv(int d_) : d(d_), m(0), s(0) {
+    if (d_ > 1) {
+      int l = 0;
+      while ((1ll << l) < d_) ++l;
+      m = (unsigned)(((1ull << (31 + l)) + (unsigned)d_ - 1) / (unsigned)d_);
+      s = l - 1;
+    }
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return d == 1 ? n : (int)(__umulhi((unsigned)n, m) >> s);
+  }
+};
 
 // allow a kernel more than the default 48 KB of dynamic shared memory
 inline cudaError_t set_smem(const void* fn, size_t smem) {

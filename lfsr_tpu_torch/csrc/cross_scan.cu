@@ -16,10 +16,30 @@
 // anti-diagonal MXU matmuls to reverse rows, pallas_layout.py:69-80); on
 // Hopper a permutation is index arithmetic on the load, and what costs is
 // where the reads land: a run of raster pixels reads quarters 2 and 3 at
-// positions H apart, a separate 32-byte piece each.
-//  - K4: one warp per sequence position; each lane reads its channels from
-//    the source pixel of its quarter, then LayerNorm over C with warp
-//    reductions (flax fast-variance form, eps from the caller).
+// positions H apart, a separate 32-byte piece each, and how many
+// instructions the addresses take.
+//  - K4 "tile" (a quarter a multiple of 8 bytes: bf16 C % 16 == 0, f32
+//    C % 8 == 0; ops/cross_scan.gather_path): persistent CTAs walk tiles
+//    of T consecutive output positions of one image (ops/cross_scan.
+//    gather_tile: ~16 KB of rows, 128 at bf16 C 64), from both ends of
+//    the image in turn, so the pieces of a pixel that positions l and
+//    L - 1 - l read are fetched together. Each quarter's
+//    pieces are copied by cp.async into a [position][C + C/4] tile in
+//    shared memory, the permutation in the source addresses: quarter 0
+//    reads a forward run of raster pixels, 1 a backward run, 2 and 3 runs
+//    down columns, forwards and backwards; the pixel of a position comes
+//    from one 32-bit multiply-high division by W or H (lfsr::FastDiv),
+//    no 64-bit division anywhere. The next tile's copies are in flight
+//    while this one normalises: P threads a position (8 at bf16 C 64),
+//    one 16-byte shared read each, float32 sums and sums of squares
+//    reduced by xor-shuffles, flax's fast variance, and each output row
+//    written once, rounded once, in 16-byte granules of one contiguous
+//    run. (The warp kernel before it: one warp a position, scalar 2-byte
+//    loads, three 64-bit divisions a lane: bound by issue, 5.6x its byte
+//    bound.)
+//  - K4 "warp" (the other widths, bf16 C = 4, 12, ...): one warp per
+//    sequence position; each lane reads its channels from the source
+//    pixel of its quarter, then LayerNorm over C with warp reductions.
 //  - K5 "mma" (bfloat16, C a multiple of 16): persistent CTAs (two an SM)
 //    walk 2-D tiles of th x tw pixels (ops/cross_scan.scatter_tile: 16 x 16
 //    up to 64 channels). A tile's un-permuted rows are copied by cp.async
@@ -354,6 +374,239 @@ cudaError_t launch(const Params& p, cudaStream_t s) {
 
 }  // namespace scatter_mma
 
+// ---------------------------------------------------------------------------
+// K4 "tile": persistent CTAs, tiles of consecutive sequence positions
+// ---------------------------------------------------------------------------
+
+namespace gather_tile {
+
+constexpr int kThreads = 256;
+
+struct Params {
+  const void* x;       // [B, H, W, C] (E), 16-byte aligned
+  const float* gamma;  // [C]
+  const float* beta;   // [C]
+  void* out;           // [B, H*W, C] (E), 16-byte aligned
+  int B, H, W, T;      // T: sequence positions a tile
+  lfsr::FastDiv divH, divW;
+  float eps;
+};
+
+// The layout of a width: a quarter is G elements (GB bytes), copied in
+// granules of kGran bytes (16 where GB allows, else 8: the wrapper's rule
+// ops/cross_scan.gather_path sends GB % 8 != 0 to the warp kernel), kVec
+// elements a granule, NQ granules a quarter. A staged row is [C + G]: the
+// pitch of 5 quarters (an odd number of quarter granules) spreads a warp's
+// copies of consecutive positions over the banks. LayerNorm reads a row's
+// N granules M at a time (M = 2 only above 32 granules: float32 with
+// 8-byte quarters at C > 64), one thread a chunk of a group of P lanes (a
+// power of two >= N / M).
+template <typename E, int C>
+struct Layout {
+  static constexpr int G = C / 4, GB = G * (int)sizeof(E);
+  static constexpr int kGran = GB % 16 == 0 ? 16 : 8, kVec = kGran / (int)sizeof(E);
+  static constexpr int NQ = GB / kGran, LDS = C + G, N = 4 * NQ;
+  static constexpr int M = N > 32 ? 2 : 1, kEl = M * kVec;  // granules, elements a thread
+  static constexpr int P = N / M <= 4 ? 4 : N / M <= 8 ? 8 : N / M <= 16 ? 16 : 32;
+  static constexpr int kRows = kThreads / P;  // rows a LayerNorm pass
+  static_assert(GB % 8 == 0 && N % M == 0 && N / M <= 32, "the tile kernel's widths");
+};
+
+__device__ __forceinline__ void unpack(uint32_t w, float* v) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  v[0] = f.x;
+  v[1] = f.y;
+}
+
+// one granule of a staged row as kVec floats, and back into the output
+template <int kVec>
+__device__ __forceinline__ void load_gran(const __nv_bfloat16* s, float* v) {
+  if constexpr (kVec == 8) {
+    const uint4 r = *reinterpret_cast<const uint4*>(s);
+    unpack(r.x, v); unpack(r.y, v + 2); unpack(r.z, v + 4); unpack(r.w, v + 6);
+  } else {
+    const uint2 r = *reinterpret_cast<const uint2*>(s);
+    unpack(r.x, v); unpack(r.y, v + 2);
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void load_gran(const float* s, float* v) {
+  if constexpr (kVec == 4) {
+    const float4 r = *reinterpret_cast<const float4*>(s);
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+  } else {
+    const float2 r = *reinterpret_cast<const float2*>(s);
+    v[0] = r.x; v[1] = r.y;
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void store_gran(__nv_bfloat16* o, const float* v) {
+  using lfsr::pack_bf16;
+  if constexpr (kVec == 8)
+    *reinterpret_cast<uint4*>(o) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  else
+    *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+template <int kVec>
+__device__ __forceinline__ void store_gran(float* o, const float* v) {
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+}
+
+// tile t -> its image b and first position l0 (tiles of T positions,
+// ceil(L / T) an image). An image's tiles are walked from both ends in
+// turn (0, last, 1, last - 1, ...): position l reads quarter 0 of pixel l
+// and position L - 1 - l quarter 1 of the same pixel (2 and 3 likewise
+// down the columns), so the tiles in flight together fetch two 32-byte
+// pieces of each 128-byte pixel row at once, not one at a time.
+__device__ __forceinline__ void tile_origin(const Params& p, int tile, int L, int& b, int& l0) {
+  const int tpi = (L + p.T - 1) / p.T;
+  b = tile / tpi;
+  const int j = tile - b * tpi;
+  l0 = ((j & 1) ? tpi - 1 - (j >> 1) : (j >> 1)) * p.T;
+}
+
+// The tile's positions l0 .. l0 + n - 1 -> s [position][LDS]: quarter q of
+// position l is the pixel whose quarter-q sequence index is l (the
+// permutation is an involution), raster index li = l (q 0, 2) or L - 1 - l
+// (q 1, 3), row-major for q 0, 1 and column-major for q 2, 3. Copy i of a
+// quarter is granule i % NQ of position i / NQ, so consecutive threads read
+// a forward (q 0), backward (q 1) or column (q 2, 3) run of pixels.
+template <typename E, int C>
+__device__ __forceinline__ void copy_tile(const Params& p, E* s, int tile, int L) {
+  using Y = Layout<E, C>;
+  int b, l0;
+  tile_origin(p, tile, L, b, l0);
+  const int n = min(p.T, L - l0);
+  const E* xb = static_cast<const E*>(p.x) + (size_t)b * L * C;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    for (int i = threadIdx.x; i < n * Y::NQ; i += kThreads) {
+      const int k = i / Y::NQ, part = i - k * Y::NQ;
+      const int l = l0 + k, li = (q & 1) ? L - 1 - l : l;
+      int hh, ww;
+      if (q < 2) {
+        hh = p.divW.div(li);
+        ww = li - hh * p.W;
+      } else {
+        ww = p.divH.div(li);
+        hh = li - ww * p.H;
+      }
+      const int c0 = q * Y::G + part * Y::kVec;
+      const E* src = xb + ((size_t)hh * p.W + ww) * C + c0;
+      E* dst = s + k * Y::LDS + c0;
+      if constexpr (Y::kGran == 16)
+        lfsr::cp_async16(dst, src);
+      else
+        lfsr::cp_async8(dst, src);
+    }
+  }
+}
+
+template <typename E, int C>
+__global__ void __launch_bounds__(kThreads) gather_tile_kernel(const Params p) {
+  using Y = Layout<E, C>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* const buf = reinterpret_cast<E*>(smem);  // two tiles of [T][LDS]
+  const int tile_elems = p.T * Y::LDS;
+  const int L = p.H * p.W;
+  const int tiles = p.B * ((L + p.T - 1) / p.T);
+  // this thread's chunk of a row, elements c0 .. c0 + kEl - 1 (the same at
+  // every position), and its gamma and beta; lanes past the row hold zeros
+  const int j = threadIdx.x % Y::P, row0 = threadIdx.x / Y::P, c0 = j * Y::kEl;
+  const bool active = j < Y::N / Y::M;
+  float ga[Y::kEl], be[Y::kEl];
+#pragma unroll
+  for (int e = 0; e < Y::kEl; ++e) {
+    ga[e] = active ? p.gamma[c0 + e] : 0.f;
+    be[e] = active ? p.beta[c0 + e] : 0.f;
+  }
+  if ((int)blockIdx.x < tiles) copy_tile<E, C>(p, buf, blockIdx.x, L);
+  lfsr::cp_async_commit();
+  int cur = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, cur ^= 1) {
+    lfsr::cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; every thread is done with the other buffer
+    if (tile + (int)gridDim.x < tiles)  // the next tile's rows fly while this one normalises
+      copy_tile<E, C>(p, buf + (cur ^ 1) * tile_elems, tile + gridDim.x, L);
+    lfsr::cp_async_commit();
+    int b, l0;
+    tile_origin(p, tile, L, b, l0);
+    const E* s = buf + cur * tile_elems;
+    E* ob = static_cast<E*>(p.out) + ((size_t)b * L + l0) * C;
+    // every thread runs T / kRows passes (T is a multiple of kRows), so
+    // the group's shuffles are warp-uniform
+    for (int r = row0; r < p.T; r += Y::kRows) {
+      float v[Y::kEl];
+      float s1 = 0.f, s2 = 0.f;
+      if (active) {
+#pragma unroll
+        for (int m = 0; m < Y::M; ++m)
+          load_gran<Y::kVec>(s + r * Y::LDS + c0 + m * Y::kVec, v + m * Y::kVec);
+#pragma unroll
+        for (int e = 0; e < Y::kEl; ++e) {
+          s1 += v[e];
+          s2 += v[e] * v[e];
+        }
+      }
+#pragma unroll
+      for (int o = Y::P / 2; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      // flax's fast variance, float32 statistics, rounded once at the store
+      const float mean = s1 / C;
+      const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.f) + p.eps);
+      if (active && l0 + r < L) {
+#pragma unroll
+        for (int e = 0; e < Y::kEl; ++e) v[e] = (v[e] - mean) * inv * ga[e] + be[e];
+#pragma unroll
+        for (int m = 0; m < Y::M; ++m)
+          store_gran<Y::kVec>(ob + (size_t)r * C + c0 + m * Y::kVec, v + m * Y::kVec);
+      }
+    }
+  }
+}
+
+template <typename E, int C>
+cudaError_t launch(const Params& p, cudaStream_t s) {
+  using Y = Layout<E, C>;
+  if (p.T < Y::kRows || p.T % Y::kRows) return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)p.T * Y::LDS * sizeof(E);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto* kernel = gather_tile_kernel<E, C>;
+  cudaError_t e = lfsr::set_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long L = (long long)p.H * p.W;
+  const long long tiles = (long long)p.B * ((L + p.T - 1) / p.T);
+  const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// the widths the tile kernel takes: C a multiple of 32 / sizeof(E) (a
+// quarter of a multiple of 8 bytes) up to kMaxC
+template <typename E, int C = kMaxC>
+cudaError_t dispatch(int c, const Params& p, cudaStream_t s) {
+  constexpr int kStep = 32 / (int)sizeof(E);
+  if (c == C) return launch<E, C>(p, s);
+  if constexpr (C > kStep) return dispatch<E, C - kStep>(c, p, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace gather_tile
+
 }  // namespace
 
 LFSR_EXPORT int lfsr_cross_scan_gather(const void* x, const void* gamma, const void* beta,
@@ -364,6 +617,28 @@ LFSR_EXPORT int lfsr_cross_scan_gather(const void* x, const void* gamma, const v
   if (dtype == lfsr::kF32) return launch_gather<float>(x, gamma, beta, out, B, H, W, C, eps, s);
   if (dtype == lfsr::kBF16)
     return launch_gather<__nv_bfloat16>(x, gamma, beta, out, B, H, W, C, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// x [B, H, W, C] and out [B, H*W, C] of ``dtype`` (contiguous, 16-byte
+// aligned), gamma and beta [C] float32; tiles of T positions
+// (ops/cross_scan.gather_tile), C a multiple of 16 (bf16) or 8 (f32).
+LFSR_EXPORT int lfsr_cross_scan_gather_tile(const void* x, const void* gamma, const void* beta,
+                                            void* out, int B, int H, int W, int C, int T,
+                                            float eps, int dtype, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || (long long)H * W >= (1ll << 31)) return cudaErrorInvalidValue;
+  gather_tile::Params p{};
+  p.x = x;
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.out = out;
+  p.B = B; p.H = H; p.W = W; p.T = T;
+  p.divH = lfsr::FastDiv(H);
+  p.divW = lfsr::FastDiv(W);
+  p.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == lfsr::kF32) return gather_tile::dispatch<float>(C, p, s);
+  if (dtype == lfsr::kBF16) return gather_tile::dispatch<__nv_bfloat16>(C, p, s);
   return cudaErrorInvalidValue;
 }
 

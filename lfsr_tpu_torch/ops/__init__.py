@@ -7,13 +7,15 @@ inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
 with their sources and the TPU kernels they replace; K8's ``PATH_LAUNCHES``
 and K5's, K6's and K7's ``K5_PATH_LAUNCHES``, ``K6_PATH_LAUNCHES`` and
 ``K7_PATH_LAUNCHES`` split their launches between each one's tensor-core
-(``"mma"``) and CUDA-core (``"fma"``) kernels.
+(``"mma"``) and CUDA-core (``"fma"``) kernels; K4's ``K4_PATH_LAUNCHES``
+between its tile kernel (``"tile"``) and its one-warp kernel (``"warp"``).
 """
 
 from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import PATH_LAUNCHES as K7_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.block import ln_msl
+from lfsr_tpu_torch.ops.cross_scan import GATHER_PATH_LAUNCHES as K4_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.cross_scan import PATH_LAUNCHES as K5_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.head import hlfr_tail
@@ -79,8 +81,9 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
-    # K8's, K5's, K6's and K7's per-kernel counts
-    for counts in (PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES):
+    # K8's, K4's, K5's, K6's and K7's per-kernel counts
+    for counts in (PATH_LAUNCHES, K4_PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES,
+                   K7_PATH_LAUNCHES):
         for path in counts:
             counts[path] = 0
 

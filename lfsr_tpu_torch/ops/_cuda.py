@@ -64,6 +64,8 @@ _SIGNATURES = {
     "lfsr_mamba_front": [_P, _S] + [_P] * 5 + [_I] * 6 + [_P],
     # x, gamma, beta, out, B, H, W, C, eps, dtype, stream
     "lfsr_cross_scan_gather": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    # x, gamma, beta, out, B, H, W, C, positions a tile, eps, dtype, stream
+    "lfsr_cross_scan_gather_tile": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # seq, x, w, scale, out, B, H, W, C, dtype, stream
     "lfsr_cross_scan_scatter": [_P] * 5 + [_I] * 5 + [_P],
     # seq, x, w, scale, out, B, H, W, C, tile rows, tile columns, stream
@@ -83,8 +85,9 @@ _SIGNATURES = {
     "lfsr_masked_mha_mma": [_P] * 5 + [_I] * 4 + [_F, _P],
     # u, delta, B, sB, C, sC, y, A, D (or null), B, L, Di, N, mode, dtype, stream
     "lfsr_scan_given": [_P, _P] + [_P, _S] * 2 + [_P] * 3 + [_I] * 6 + [_P],
-    # y, w1, w36, bias, out, B, H, W, C, Cz, slope, dtype, stream
-    "lfsr_hlfr_tail": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # y, w1, w36, bias, out, B, H, W, C, Cz, tile rows, tile columns, slope,
+    # dtype, stream
+    "lfsr_hlfr_tail": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

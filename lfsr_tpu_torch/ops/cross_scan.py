@@ -12,11 +12,16 @@ column-major.
 
 On CUDA tensors the wrappers launch the kernels in csrc/cross_scan.cu; on
 CPU tensors they run the plain twins (ports of the ``_ref`` functions).
-K5 has two kernels, chosen by :func:`kernel_path`: ``"mma"`` (bfloat16, C
-a multiple of 16: the mix on the tensor cores, 2-D tiles of
-:func:`scatter_tile` pixels read from seq in runs of consecutive positions)
-and ``"fma"`` (the rest: CUDA cores); ``PATH_LAUNCHES`` counts each. The
-choice is a rule, not a fallback: a kernel that fails to launch raises.
+K4 has two kernels, chosen by :func:`gather_path`: ``"tile"`` (a channel
+quarter a multiple of 8 bytes: tiles of :func:`gather_tile` consecutive
+positions, each quarter copied from a run of pixels, LayerNorm from shared
+memory) and ``"warp"`` (the other widths: a warp a position);
+``GATHER_PATH_LAUNCHES`` counts each. K5 has two kernels, chosen by
+:func:`kernel_path`: ``"mma"`` (bfloat16, C a multiple of 16: the mix on
+the tensor cores, 2-D tiles of :func:`scatter_tile` pixels read from seq in
+runs of consecutive positions) and ``"fma"`` (the rest: CUDA cores);
+``PATH_LAUNCHES`` counts each. Each choice is a rule, not a fallback: a
+kernel that fails to launch raises.
 When a gradient is wanted they go through ``_cuda.PlainVJP``: the kernel
 forward, the plain twin's gradient (the JAX custom_vjps at
 pallas_layout.py:302-311 and :430-439 differentiate the XLA reference).
@@ -31,6 +36,11 @@ from lfsr_tpu_torch.ops import _cuda
 EPS = 1e-6
 # K5's launches of each kernel (their sum is cross_scan_scatter.launches)
 PATH_LAUNCHES = {"mma": 0, "fma": 0}
+# K4's launches of each kernel (their sum is cross_scan_gather.launches)
+GATHER_PATH_LAUNCHES = {"tile": 0, "warp": 0}
+# K4 "tile": a call is cut into at least this many tiles where it can be
+# (about 8 for each of the H100's 132 SMs)
+GATHER_MIN_TILES = 1024
 
 
 def layer_norm_fast(x: torch.Tensor, gamma, beta, eps: float = EPS) -> torch.Tensor:
@@ -83,6 +93,30 @@ def kernel_path(dtype: torch.dtype, c: int) -> str:
     return "mma" if dtype == torch.bfloat16 and c % 16 == 0 else "fma"
 
 
+def gather_path(dtype: torch.dtype, c: int) -> str:
+    """Which K4 kernel takes a call: ``"tile"`` where a channel quarter is a
+    multiple of 8 bytes (bfloat16 C % 16 == 0, float32 C % 8 == 0: the
+    tile kernel's 8- or 16-byte copies), else ``"warp"``."""
+    return "tile" if (c // 4) * torch.finfo(dtype).bits // 8 % 8 == 0 else "warp"
+
+
+def gather_tile(dtype: torch.dtype, c: int, b: int, l: int) -> int:
+    """Consecutive sequence positions a K4 "tile" CTA takes at C channels
+    on b sequences of l positions: the power of two nearest below 16 KB of
+    rows, within 64..256 (128 at bfloat16 C 64), halved down to 64 while
+    the call has fewer than ``GATHER_MIN_TILES`` tiles (the tiled eval's
+    [2, 160, 160] map: 64), so a small call still gives each CTA a next
+    tile to copy while it normalises one. Two buffers of T rows of C + C/4
+    are 40 KB at 16 KB of rows: several CTAs an SM. A multiple of 64, so
+    every thread of the LayerNorm's groups (at most 32 lanes a row, 256
+    threads) runs the same passes."""
+    rows = 16384 // (c * torch.finfo(dtype).bits // 8)
+    t = max(64, min(256, 1 << (rows.bit_length() - 1)))
+    while t > 64 and b * -(-l // t) < GATHER_MIN_TILES:
+        t //= 2
+    return t
+
+
 def scatter_tile(c: int) -> tuple[int, int]:
     """(rows, columns) of the pixel tile a K5 "mma" CTA takes at C channels:
     16 x 16 up to 64 channels, 8 x 16 above. Its shared memory (W^T and two
@@ -113,9 +147,18 @@ def _gather(x, gamma, beta):
     if c % 4 or c > 128:
         raise ValueError(f"cross-scan kernels take C % 4 == 0 and C <= 128, got C={c}")
     out = torch.empty((b, h * w, c), dtype=x.dtype, device=x.device)
-    _cuda.launch("lfsr_cross_scan_gather", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                 out.data_ptr(), b, h, w, c, EPS, code, _cuda.stream_of(x))
+    path = gather_path(x.dtype, c)
+    if path == "tile":
+        if any(t.data_ptr() % 16 for t in (x, out)):
+            raise ValueError("cross_scan_gather: x and out must be 16-byte aligned")
+        _cuda.launch("lfsr_cross_scan_gather_tile", x.data_ptr(), gamma.data_ptr(),
+                     beta.data_ptr(), out.data_ptr(), b, h, w, c,
+                     gather_tile(x.dtype, c, b, h * w), EPS, code, _cuda.stream_of(x))
+    else:
+        _cuda.launch("lfsr_cross_scan_gather", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                     out.data_ptr(), b, h, w, c, EPS, code, _cuda.stream_of(x))
     cross_scan_gather.launches += 1
+    GATHER_PATH_LAUNCHES[path] += 1
     return out
 
 

@@ -9,7 +9,11 @@ product out of device memory. :func:`hlfr_tail` is the model's entry,
 once per flagship forward: the kernel on a CUDA tensor, the plain twin
 :func:`hlfr_tail_plain` (the reference chain) on a CPU tensor, and with a
 gradient wanted ``_cuda.PlainVJP`` (the twin's gradient, as ``_ht_bwd``
-differentiates the reference).
+differentiates the reference). The kernel is the dtype's
+(:func:`kernel_path`): ``"mma"`` for bfloat16 (tensor cores, tiles of 16 x
+30 output pixels, the next tile's halo copied by ``cp.async`` while one
+computes) and ``"f32"`` for float32 (CUDA cores, 16 x 16 tiles); the
+wrapper passes the tile (``TAIL_TILES``) and the kernel refuses another.
 """
 
 from __future__ import annotations
@@ -20,6 +24,16 @@ from lfsr_tpu_torch.ops import _cuda
 
 # the kernel's shapes: channels of y, and rr (the last pixel-shuffle stage, r = 2)
 TAIL_CHANNELS, TAIL_RR = (16, 32, 48, 64), 4
+# output pixels (rows, columns) a CTA of each kernel takes: the halo is two
+# more each way, 18 x 32 = 576 pixels (36 m-tiles of 16, 12 warps of 3) for
+# "mma", 18 x 18 = 324 (a thread each) for "f32"
+TAIL_TILES = {"mma": (16, 30), "f32": (16, 16)}
+
+
+def kernel_path(dtype: torch.dtype) -> str:
+    """K10's kernel for y of ``dtype``: ``"mma"`` (bfloat16, tensor cores)
+    or ``"f32"`` (float32, CUDA cores)."""
+    return "mma" if dtype == torch.bfloat16 else "f32"
 
 
 def hlfr_tail_plain(y, w1, kf, bias, slope: float = 0.1):
@@ -57,11 +71,12 @@ def _hlfr_tail(y, w1, kf, bias, slope=0.1):
     _cuda.check(w1, "w1", (C, Cz), dt, dev)
     _cuda.check(w36, "w36", (Cz, 9 * rr), dt, dev)
     _cuda.check(b, "bias", (1,), torch.float32, dev)
-    if y.data_ptr() % 16:
-        raise ValueError("hlfr_tail kernel: y must be 16-byte aligned")
     out = torch.empty((B, H, W, rr), dtype=torch.float32, device=dev)
+    if y.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("hlfr_tail kernel: y and out must be 16-byte aligned")
     _cuda.launch("lfsr_hlfr_tail", y.data_ptr(), w1.data_ptr(), w36.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), B, H, W, C, Cz, float(slope), code, _cuda.stream_of(y))
+                 out.data_ptr(), B, H, W, C, Cz, *TAIL_TILES[kernel_path(dt)], float(slope), code,
+                 _cuda.stream_of(y))
     hlfr_tail.launches += 1
     return out
 

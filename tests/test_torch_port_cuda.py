@@ -27,7 +27,12 @@ and at an odd one (Di 37, rank 3). K7's tensor-core kernel with x in bf16
 and in float32 (its float32-input mode) and K5's, at 1 x 17 x 23, the
 tiled, Real and 644 x 644 maps and C 16 to 128, K7's taps bit-equal to the
 twin's on its own xn, both CUDA-core kernels, each call's ``PATH_LAUNCHES``,
-and a block below the TPU's gate on K7's float32-input mode.
+and a block below the TPU's gate on K7's float32-input mode. K4's tile
+kernel in bf16 and float32 at C 16-128 on the 1 x 17 x 23, tiled, Real and
+Synth maps, its one-warp kernel at the other widths, and their
+``GATHER_PATH_LAUNCHES``; K10 at every width it takes, in both dtypes, on
+maps around its tiles; two calls of each bit-equal, and K10's output
+unchanged, bit for bit, when a crop moves its tile boundaries.
 
 This file imports no jax, so it runs on the machine with the card:
 
@@ -715,3 +720,100 @@ def test_block_below_the_k7_gate_takes_k7_on_float32_x(cuda):
     assert block.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
     err, scale = _cuda.twin_error(got, want)
     assert err <= TOL[torch.bfloat16] * scale, err
+
+
+# ---- K4's tile kernel and K10's halo-pipelined tensor-core kernel ----------
+
+K4_SHAPES = [(1, 17, 23), (2, 160, 160), (4, 640, 880), (4, 720, 720)]
+K4_IDS = ["1x17x23", "tiled", "real", "synth"]
+# K4's float32 bound: the kernel and the twin take the same float32
+# statistics in another order (and rsqrtf), ~1e-6 of the output's scale
+K4_F32_TOL = 1e-5
+
+
+def _k4_args(g, dtype, B, H, W, C):
+    return _rc(g, B, H, W, C, dtype=dtype), 1 + _rc(g, C, s=0.2), _rc(g, C, s=0.1)
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=K4_IDS)
+def test_k4_tile_holds_its_twin(cuda, shape, dtype, C):
+    """A quarter of a multiple of 8 bytes takes the tile kernel (16- or
+    8-byte copies, ragged last tiles, H != W); bf16 within 3e-2 of scale
+    (both sides take float32 statistics and round once: an ulp apart at
+    most), float32 within 1e-5."""
+    args = _k4_args(torch.Generator(device="cuda").manual_seed(40 + C), dtype, *shape, C)
+    assert cross_scan.gather_path(dtype, C) == "tile"
+    before = dict(cross_scan.GATHER_PATH_LAUNCHES)
+    got = cross_scan.cross_scan_gather(*args)
+    torch.cuda.synchronize()
+    assert cross_scan.GATHER_PATH_LAUNCHES == {"tile": before["tile"] + 1, "warp": before["warp"]}
+    want = cross_scan.cross_scan_gather_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    err, scale = _cuda.twin_error(got, want)
+    assert err <= (TOL[dtype] if dtype == torch.bfloat16 else K4_F32_TOL) * scale, err
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 4), (torch.bfloat16, 12),
+                                     (torch.bfloat16, 40), (torch.float32, 4),
+                                     (torch.float32, 20)])
+def test_k4_warp_kernel_takes_the_rest(cuda, dtype, C):
+    """A quarter that is not a multiple of 8 bytes takes the one-warp kernel."""
+    args = _k4_args(torch.Generator(device="cuda").manual_seed(41), dtype, 2, 40, 72, C)
+    assert cross_scan.gather_path(dtype, C) == "warp"
+    before = dict(cross_scan.GATHER_PATH_LAUNCHES)
+    got = cross_scan.cross_scan_gather(*args)
+    torch.cuda.synchronize()
+    assert cross_scan.GATHER_PATH_LAUNCHES == {"tile": before["tile"], "warp": before["warp"] + 1}
+    err, scale = _cuda.twin_error(got, cross_scan.cross_scan_gather_plain(*args))
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k4_tile_two_calls_give_the_same_bits(cuda, dtype):
+    args = _k4_args(torch.Generator(device="cuda").manual_seed(42), dtype, 4, 160, 240, 64)
+    assert torch.equal(cross_scan.cross_scan_gather(*args), cross_scan.cross_scan_gather(*args))
+
+
+def _k10_args(g, dtype, B, H, W, C):
+    """y [B, H, W, C], w1 [C, 4 C], kf folded from a 3x3 kernel, bias [1]."""
+    return (_rc(g, B, H, W, C, dtype=dtype), _rc(g, C, 4 * C, s=C**-0.5, dtype=dtype),
+            fold_out_conv(_rc(g, 3, 3, C, 1, s=0.1, dtype=dtype), 2), _rc(g, 1, s=0.1, dtype=dtype))
+
+
+@pytest.mark.parametrize("C", head.TAIL_CHANNELS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(1, 37, 53), (1, 16, 30), (2, 17, 31), (3, 1, 1)],
+                         ids=["37x53", "one_tile", "17x31", "1x1"])
+def test_k10_holds_its_twin_at_each_width(cuda, shape, dtype, C):
+    """Each kernel (bf16: 16 x 30 tiles, float32: 16 x 16) at every width
+    the wrapper takes, Cz = 4 C, on maps that are a tile, one pixel more
+    than a tile each way, neither, or a single pixel (all halo)."""
+    args = _k10_args(torch.Generator(device="cuda").manual_seed(50 + C), dtype, *shape, C)
+    before = head.hlfr_tail.launches
+    got = head.hlfr_tail(*args)
+    torch.cuda.synchronize()
+    assert head.hlfr_tail.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (*shape, 4)
+    err, scale = _cuda.twin_error(got, head.hlfr_tail_plain(*args))
+    assert err <= TOL[dtype] * scale, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k10_two_calls_give_the_same_bits(cuda, dtype):
+    args = _k10_args(torch.Generator(device="cuda").manual_seed(51), dtype, 2, 320, 320, 64)
+    assert torch.equal(head.hlfr_tail(*args), head.hlfr_tail(*args))
+
+
+@pytest.mark.parametrize("dy,dx", [(5, 7), (16, 30), (1, 29)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k10_tile_placement_changes_no_bit(cuda, dtype, dy, dx):
+    """A pixel's output is a function of its 3 x 3 neighbourhood of y alone,
+    summed in a fixed order: cropping y's top and left moves every tile
+    boundary, and changes no bit of an output whose neighbourhood the crop
+    keeps (all but its first row and column)."""
+    y, *rest = _k10_args(torch.Generator(device="cuda").manual_seed(52), dtype, 1, 70, 97, 64)
+    full = head.hlfr_tail(y, *rest)
+    crop = head.hlfr_tail(y[:, dy:, dx:].contiguous(), *rest)
+    assert torch.equal(crop[:, 1:, 1:], full[:, dy + 1 :, dx + 1 :])

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the whole check (one card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
     python3 chip_smoke.py --train-only    # build + kernels + the training phases (and K9a's op)
+    python3 chip_smoke.py --entry-only    # build + the flagship's kernels + the entry-point phase
     python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
     python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
     python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
@@ -80,8 +81,29 @@ Phases (any failure exits non-zero):
    dispatch and K1 0, ms/scene beside the default's, scene 0 of both
    geometries within the SR bound of the default path's views, Synth
    scene 0 against the plain twins.
-6. Submission: ``infer_submission`` of 16 Synth + 16 Real synthetic scenes
-   into a temporary directory; the NTIRE validator must report no error.
+6. Entry points (``lfsr_tpu_torch.scripts.*``, what a user runs), in a
+   temporary directory, from ``.npz`` files written there with numpy in the
+   loaders' tree (32 SAI-160 training pairs; 4 Synth + 4 Real scenes for
+   validation and test; 16 + 16 for the submission), the full-width
+   flagship from the seeded init: ``train`` with ``--epoch 1 --batch_size
+   8``, then ``--epoch 2``, which resumes from ``epoch_0000.pt``, and in a
+   second log dir ``--epoch 2`` straight (``--warmup_epochs 2`` in all
+   three: the learning rate of each of the 8 steps is then the same in
+   both); each validates at its last epoch (one whole-scene dispatch per
+   geometry); launches per step x steps + the validation dispatches; the
+   resumed run's train state (parameters, both moments, the optimizer's
+   four counts, the step) equal to the straight run's, no kernel of the
+   path adds in an order that varies; two controls that restore
+   ``epoch_0000.pt`` with the moments zeroed or the counts reset, then run
+   epoch 1, must differ from the straight run; checkpoint size and
+   save/restore seconds; ms/step.
+   ``test`` on the 8 scenes with the resumed checkpoint (one dispatch a
+   scene): its CSV equals ``evaluate_sets`` of the same model and scenes,
+   one scene a dispatch. ``inference`` on the 16 + 16 scenes: the gate,
+   the BMP tree, the zip, the validator VALID (and
+   ``validate_submission``'s exit code 0); launches of its 8 dispatches.
+   ``check_efficiency --bench --json``: 693,998 parameters, 18,118,185,344
+   official MACs, PASS, latency and peak memory on the card.
 7. EPIT (64 channels, 5 AltFilters, 8 heads, bf16, seeded init), its
    default tiled ``evaluate_sets`` of one 512^2-HR scene (32 dispatches of
    2 patches: K8 320 launches, nothing else) against the plain twins, and
@@ -101,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -164,6 +187,13 @@ WHOLE, SCANS = ("synth", "real"), ("K1", "K9a", "K9b", "K9c")
 # 72 channels x expand 1.25, dt rank ceil(72 / 16))
 N24_KERNELS = ("K1", "K2", "K3", "K9a", "K9b", "K9c")
 N24_DIMS = {"Di": 90, "N": 24, "R": 5}
+
+# the entry-point phase: the flagship's kernels, and the gate's numbers at
+# the official input (the JAX package's CPU count, tests/test_torch_port_efficiency.py)
+ENTRY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10")
+GATE_PARAMS, GATE_MACS = 693_998, 18_118_185_344
+# the gate's bench: 5 warm-up calls and 2 x 50 timed ones (tools/efficiency.latency_bench)
+GATE_FORWARDS = 5 + 2 * 50
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, matrix
 # products on the tensor cores of bf16 and of TF32 operands, float32 on the
@@ -878,28 +908,228 @@ def run_scan_impl(impl: str, sd, synth: list, real: list, ref: dict, profile: bo
     return total
 
 
-def run_submission(model, synth: list, real: list) -> None:
-    from lfsr_tpu_torch.config import Config
-    from lfsr_tpu_torch.inference import infer_submission
-    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
+def write_npz_tree(root: Path, tag: str, subsets: dict) -> None:
+    """Write ``{dataset: [TestScene]}`` as the loaders' ``.npz`` tree
+    ``root/tag/<dataset>/<scene>.npz`` (numpy only)."""
+    for ds, scenes in subsets.items():
+        d = root / tag / ds
+        d.mkdir(parents=True, exist_ok=True)
+        for sc in scenes:
+            np.savez(d / f"{sc.name}.npz", Lr_SAI_y=sc.lr_y, Hr_SAI_y=sc.hr_y,
+                     Sr_SAI_cbcr=sc.sr_cbcr)
 
-    cfg = Config()
-    dispatches = {k: -(-len(v) // cfg.whole_scene_minibatch)
-                  for k, v in (("Synth", synth), ("Real", real))}
+
+@contextlib.contextmanager
+def timing(owner, name: str, sink: list):
+    """Within the block, ``owner.name`` is wrapped: each call appends its
+    seconds (after a device synchronise) to ``sink``."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def state_gap(a, b) -> dict:
+    """Where trainers ``a`` and ``b`` part: max|a - b| of the parameters and
+    of both moments, and the number of the optimizer's counts and the step
+    that differ."""
+    from lfsr_tpu_torch.train.trainer import OPT_COUNTS
+
+    sa, sb = a.opt_state, b.opt_state
+    return {"param": max((a.params[k] - b.params[k]).abs().max().item() for k in a.params),
+            "mu": (sa.mu_flat - sb.mu_flat).abs().max().item(),
+            "nu": (sa.nu_flat - sb.nu_flat).abs().max().item(),
+            "counts": sum(not torch.equal(getattr(sa, k), getattr(sb, k)) for k in OPT_COUNTS)
+            + (a.step != b.step)}
+
+
+def resume_control(cfg, spe: int, ckpt: Path, spoil):
+    """A trainer restored from ``ckpt`` (epoch 0), spoiled by ``spoil``,
+    then run through epoch 1 as ``scripts.train`` would."""
+    from lfsr_tpu_torch.bridge import init_params
+    from lfsr_tpu_torch.data.datasets import load_train_set
+    from lfsr_tpu_torch.train.trainer import Trainer, restore_checkpoint
+
+    data = load_train_set(cfg.path_for_train, cfg.angRes, cfg.scale_factor, cfg.data_name,
+                          tag=cfg.task_tag())
+    tr = Trainer(cfg, spe, init_params(cfg, torch.Generator().manual_seed(cfg.seed)),
+                 device=DEVICE)
+    assert restore_checkpoint(ckpt, tr) == 0
+    spoil(tr.opt_state)
+    tr.run_epoch(data, 1)
+    return tr
+
+
+def entry_train(flags: list, log_dir: Path, epochs: int, steps: int, dispatches: int) -> tuple:
+    """``scripts.train.main`` of ``flags`` to ``epochs`` in ``log_dir``,
+    between a count reset and read: launches == per step x ``steps`` + the
+    validation's ``dispatches``. Returns (cfg, trainer, seconds, epoch
+    seconds, checkpoint-save seconds)."""
+    from lfsr_tpu_torch.cli import build_parser, config_from_args
+    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.scripts import train
+    from lfsr_tpu_torch.train.trainer import Trainer
+
+    cfg = config_from_args(build_parser().parse_args(
+        [*flags, "--path_log", str(log_dir), "--epoch", str(epochs)]))
+    epoch_s, save_s = [], []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with timing(Trainer, "run_epoch", epoch_s), timing(train, "save_checkpoint", save_s):
+        tr = train.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = add({k: n * steps for k, n in PER_STEP.items()}, eval_launches(dispatches))
+    check_counts(launch_counts(), want, f"entry train --epoch {epochs}")
+    return cfg, tr, seconds, epoch_s, save_s
+
+
+def run_entry(synth: list, real: list) -> dict:
+    """The entry-point phase (module docstring, phase 6). Returns its
+    launches, each run counted between its own reset and read."""
+    from lfsr_tpu_torch.cli import build_parser, config_from_args
+    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.scripts import check_efficiency, inference, test, validate_submission
+    from lfsr_tpu_torch.train.evaluate import evaluate_sets
+    from lfsr_tpu_torch.train.trainer import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from lfsr_tpu_torch.utils import create_dirs
+
+    t_phase = time.perf_counter()
+    tag, mb = "SR_5x5_4x", 4
+    n_val = (-(-EVAL_SCENES // mb)) * 2  # whole-scene dispatches of the 4 + 4 scenes
+    totals = []
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = train_data(TRAIN_PATCHES)
+        train_dir = tmp / "train" / tag / "Synthetic"
+        train_dir.mkdir(parents=True)
+        for i in range(len(data)):
+            np.savez(train_dir / f"{i:06d}.npz", Lr_SAI_y=data.lr[i], Hr_SAI_y=data.hr[i])
+        write_npz_tree(tmp / "test", tag, {"Real": real[:EVAL_SCENES], "Synth": synth[:EVAL_SCENES]})
+        t0 = time.perf_counter()
+        write_npz_tree(tmp / "submission_in", tag, {"Real": real, "Synth": synth})
+        log(f"[entry] .npz trees written: {len(data)} training pairs, {EVAL_SCENES} + "
+            f"{EVAL_SCENES} test scenes, {len(synth)} + {len(real)} submission scenes "
+            f"({time.perf_counter() - t0:.1f} s for the latter)")
+        flags = ["--batch_size", "8", "--warmup_epochs", "2", "--seed", str(SEED),
+                 "--path_for_train", str(tmp / "train"), "--path_for_test", str(tmp / "test")]
+        spe = TRAIN_PATCHES // 8
+
+        # train: 1 epoch, then 2 (resuming), and 2 straight in another log dir
+        runs = {}
+        for name, epochs in (("resumed", (1, 2)), ("straight", (2,))):
+            done = 0
+            for e in epochs:
+                cfg, tr, secs, epoch_s, save_s = entry_train(flags, tmp / name, e,
+                                                             spe * (e - done), n_val)
+                totals.append(launch_counts())
+                log(f"[entry train] {name} --epoch {e}: {spe * (e - done)} steps + validation "
+                    f"in {secs:.1f} s; epochs {', '.join(f'{x:.3f}' for x in epoch_s)} s = "
+                    f"{', '.join(f'{1e3 * x / spe:.1f}' for x in epoch_s)} ms/step; checkpoint "
+                    f"save {', '.join(f'{x:.3f}' for x in save_s)} s ({CARD})")
+                done = e
+            runs[name] = (cfg, tr)
+        (cfg, resumed), (_, straight) = runs["resumed"], runs["straight"]
+        ckpt_dir = create_dirs(cfg)[1]
+        ckpts = sorted(ckpt_dir.iterdir())
+        assert [c.name for c in ckpts] == ["epoch_0000.pt", "epoch_0001.pt"], ckpts
+        assert resumed.step == straight.step == 2 * spe
+        gap = state_gap(resumed, straight)
+        log(f"[entry train] resumed vs straight after {2 * spe} steps: max|d| param "
+            f"{gap['param']:.3e}, mu {gap['mu']:.3e}, nu {gap['nu']:.3e}; counts/step that "
+            f"differ {gap['counts']} (all must be 0); checkpoints "
+            f"{', '.join(f'{c.name} {c.stat().st_size / 2**20:.2f} MiB' for c in ckpts)}")
+        assert not any(gap.values()), gap
+        controls = {
+            "moments zeroed": lambda st: (st.mu_flat.zero_(), st.nu_flat.zero_()),
+            "counts reset": lambda st: st.count.zero_(),
+        }
+        for what, spoil in controls.items():
+            ctl = resume_control(cfg, spe, ckpts[0], spoil)
+            cgap = state_gap(ctl, straight)
+            log(f"[entry train] control, epoch_0000.pt restored with the {what}, then epoch 1, "
+                f"vs straight: max|d| param {cgap['param']:.3e}, mu {cgap['mu']:.3e}, nu "
+                f"{cgap['nu']:.3e}; counts/step that differ {cgap['counts']} (must not all be 0)")
+            assert any(cgap.values()), (what, cgap)
+            del ctl
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, resumed, 99)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_checkpoint(tmp / "epoch_0099.pt", straight)
+        torch.cuda.synchronize()
+        log(f"[entry train] checkpoint save {t_save:.3f} s, restore {time.perf_counter() - t0:.3f} "
+            f"s ({CARD})")
+        del straight, runs
+
+        # test on the 8 scenes with the resumed checkpoint: one dispatch a scene
         reset_launch_counts()
         t0 = time.perf_counter()
-        rep = infer_submission(model, {"Synth": synth, "Real": real}, cfg, Path(tmp) / "sub",
-                               log=lambda m: None)
-        seconds = time.perf_counter() - t0
-        zip_mb = (Path(tmp) / "sub.zip").stat().st_size / 2**20
-    check_counts(launch_counts(), eval_launches(sum(dispatches.values())), "submission")
-    log(f"[submission] {len(synth)} Synth + {len(real)} Real scenes -> BMP tree + "
-        f"{zip_mb:.1f} MiB zip in {seconds:.1f} s; validator: {rep.checks} checks, "
-        f"{len(rep.errors)} errors, {len(rep.warnings)} warnings ({CARD})")
-    for e in rep.errors[:10]:
-        log(f"[submission]   ERROR: {e}")
-    assert rep.ok, rep.errors
+        test.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        totals.append(launch_counts())
+        check_counts(totals[-1], eval_launches(2 * EVAL_SCENES), "entry test")
+        results = create_dirs(cfg)[2]
+        with open(results / "evaluation.csv") as f:
+            rows = [line.rstrip("\n") for line in f]
+        model, path = test.load_model(cfg, ckpt_dir, None, lambda m: None, DEVICE)
+        assert path == latest_checkpoint(ckpt_dir) == ckpts[-1]
+        scenes = {"Real": real[:EVAL_SCENES], "Synth": synth[:EVAL_SCENES]}
+        want = evaluate_sets(model, scenes, cfg.replace(whole_scene_minibatch=1), log=lambda m: None)
+        expect = ["Datasets,Scenes,PSNR,SSIM"] + [
+            f"{ds},{n},{p:.6f},{s:.6f}" for ds, r in want.items()
+            for n, p, s in [*r["scenes"], ("average", r["psnr"], r["ssim"])]]
+        assert rows == expect, (rows, expect)
+        n_bmp = len(list(results.rglob("*.bmp")))
+        assert n_bmp == 2 * EVAL_SCENES * 25, n_bmp
+        log(f"[entry test] {2 * EVAL_SCENES} scenes in {secs:.1f} s (with {n_bmp} BMPs); "
+            f"evaluation.csv equals evaluate_sets' ({CARD})")
+        del model
+
+        # inference on the 16 + 16 scenes: gate, BMP tree, zip, validator
+        scfg = cfg.replace(path_for_test=str(tmp / "submission_in"))
+        dispatches = -(-len(synth) // mb) + -(-len(real) // mb)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        zip_path = inference.main(scfg, out_root=str(tmp / "submission"), device=DEVICE)
+        secs = time.perf_counter() - t0
+        totals.append(launch_counts())
+        check_counts(totals[-1], eval_launches(dispatches), "entry inference")
+        assert zip_path == tmp / "submission.zip" and zip_path.exists(), zip_path
+        assert validate_submission.main([str(zip_path)]) == 0
+        log(f"[entry inference] gate + {len(synth)} Synth + {len(real)} Real scenes ({dispatches} "
+            f"dispatches) -> BMP tree + {zip_path.stat().st_size / 2**20:.1f} MiB zip in "
+            f"{secs:.1f} s; VALID ({CARD})")
+
+    # the gate with its bench on the card
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = check_efficiency.main(["--bench", "--json"], device=DEVICE)
+    totals.append(launch_counts())
+    check_counts(totals[-1], eval_launches(GATE_FORWARDS), "entry check_efficiency --bench")
+    r = json.loads(out.getvalue())
+    assert rc == 0 and r["verdict"], r
+    assert (r["params"], r["official_fvcore_macs"]) == (GATE_PARAMS, GATE_MACS), r
+    lat, mem = r["latency"], r["memory"]
+    log(f"[entry check_efficiency] params {r['params']:,}, official MACs "
+        f"{r['official_fvcore_macs']:,}, {r['verdict'] and 'PASS'}; [1, 160, 160, 1]: latency "
+        f"{lat['latency_ms']:.3f} ms/call, queued {lat['throughput_ms']:.3f} ms "
+        f"({lat['throughput_per_s']:.1f} patches/s), peak memory "
+        f"{mem['peak_bytes_in_use'] / 2**20:.1f} MiB ({CARD})")
+    log(f"[entry] phase {time.perf_counter() - t_phase:.1f} s")
+    return add(*totals)
 
 
 def train_data(n: int):
@@ -1101,8 +1331,8 @@ def add(*counts: dict) -> dict:
 
 def flagship_scenes():
     """The 16 Synth and 16 Real synthetic scenes of the flagship's
-    whole-scene and submission phases (the first EVAL_SCENES of each are
-    the whole-scene phases')."""
+    whole-scene and entry-point phases (the first EVAL_SCENES of each are
+    the whole-scene phases' and the entry phase's validation and test)."""
     rng = np.random.default_rng(SEED + 1)
     synth = [make_scene(rng, f"synth{i:02d}", SYNTH_HR) for i in range(SUBMISSION_SCENES)]
     real = [make_scene(rng, f"real{i:02d}", REAL_HR) for i in range(SUBMISSION_SCENES)]
@@ -1111,7 +1341,8 @@ def flagship_scenes():
 
 def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
     """The flagship's paths: train, tiled, whole-scene (under each
-    ``scan_impl``), submission. Returns the launches of their timed runs,
+    ``scan_impl``), the entry points (train, resume, test, the submission
+    through ``scripts.inference``, the gate). Returns the launches of their timed runs,
     each counted between its own reset and read."""
     from lfsr_tpu_torch.config import Config
     from lfsr_tpu_torch.models.registry import whole_scene_default
@@ -1140,9 +1371,9 @@ def run_flagship(profile: bool = False, eval_paths: bool = True) -> dict:
         impls.append(run_scan_impl(impl, sd, synth[:EVAL_SCENES], real[:EVAL_SCENES], ref,
                                    profile))
         lap(f"{impl} whole")
-    run_submission(model, synth, real)
-    lap("submission")
-    return add(*launches, tiled, whole, *impls)
+    entry = run_entry(synth, real)
+    lap("entry points")
+    return add(*launches, tiled, whole, *impls, entry)
 
 
 def run_scan_impl_alone(impl: str, profile: bool = False) -> dict:
@@ -1203,6 +1434,9 @@ def main() -> int:
                       help="only the flagship's kernel of this scan_impl (K9b or K9c), its "
                            "whole-scene eval phase, beside the 'pallas' dispatches it is held "
                            "against, and its train phase")
+    only.add_argument("--entry-only", action="store_true",
+                      help="only the flagship's kernels against their twins and the "
+                           "entry-point phase (train, resume, test, inference, the gate)")
     only.add_argument("--d-state-24", action="store_true",
                       help="only the scans at d_state 24 (K1-K3, K9a-K9c at [8, 25600, 90], "
                            "dt rank 5) against their twins, then stop")
@@ -1228,6 +1462,8 @@ def main() -> int:
              "EPIT": ("K8",), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
+    if args.entry_only:
+        names = ENTRY_KERNELS
     results: dict = {}
     check_kernels(results, N24_KERNELS if args.d_state_24 else names, args.d_state_24)
     lap("kernels")
@@ -1239,11 +1475,15 @@ def main() -> int:
     if args.scan_impl:
         eval_paths = True
         runs.append(run_scan_impl_alone(args.scan_impl, profile=args.profile))
-    if args.model in (None, "LFMambaX") and not args.scan_impl:
+    if args.entry_only:
+        eval_paths = True
+        runs.append(run_entry(*flagship_scenes()))
+        lap("entry points")
+    elif args.model in (None, "LFMambaX") and not args.scan_impl:
         runs.append(run_flagship(profile=args.profile, eval_paths=eval_paths))
         runs.append(run_k9a_op())
         lap("K9a op")
-    if args.model in (None, "EPIT") and not args.scan_impl:
+    if args.model in (None, "EPIT") and not (args.scan_impl or args.entry_only):
         runs.append(run_epit(profile=args.profile, eval_paths=eval_paths))
         lap("EPIT")
     launches = add(*runs)

@@ -14,10 +14,17 @@ module names so every counterpart is easy to find:
   training (``Trainer``: the train step, the optimizer, masking);
 - ``inference`` — the NTIRE submission writer (``infer_submission``), with
   ``tools`` (the BMP codec, the submission packager and validator);
-- ``bridge`` — flax param tree -> ``state_dict``, and a seeded random init.
+- ``bridge`` — flax param tree -> ``state_dict``, and a seeded random init;
+- ``scripts`` — the command-line entry points (``python -m
+  lfsr_tpu_torch.scripts.train``, ``test``, ``inference``,
+  ``check_efficiency``, ``validate_submission``) with the JAX scripts' flags
+  (``cli``) and log tree (``utils``); data and checkpoints are ``.npz`` /
+  ``.pt`` files read with numpy and torch (``data.datasets``,
+  ``train.trainer``), the efficiency gate is ``tools.efficiency``.
 
 Public functions keep the JAX layouts: NHWC activations and ``[B, L, C]``
 sequences. The package imports ``torch`` and never ``jax``, ``optax`` or
 ``h5py``, and nothing of ``lfsr_tpu``: what it needs of the JAX package's
-plain-Python modules (``config``, ``tools``) it keeps as its own copies.
+plain-Python modules (``config``, ``cli``, ``utils``, ``tools``) it keeps
+as its own copies.
 """

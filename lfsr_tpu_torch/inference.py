@@ -9,8 +9,8 @@ validator). Whole-scene mode (the flagship's default)
 batches same-geometry scenes as ``evaluate_sets`` does; tiled mode runs
 one scene at a time (both through ``sr_views``).
 
-The efficiency gate, checkpoint loading and a command-line entry point are
-not ported yet (ROADMAP.md queue 1): the caller passes a loaded model.
+The caller passes a loaded model; ``scripts/inference.py`` is the command
+line around it (the efficiency gate, the checkpoint, the test sets).
 """
 
 from __future__ import annotations

@@ -189,9 +189,10 @@ def sm_count(t: torch.Tensor) -> int:
 # kernel / plain-twin dispatch
 # --------------------------------------------------------------------------
 
-# Test-only switch: run every wrapper's plain twin even on CUDA tensors, so
-# a whole forward can be compared kernel-vs-twin on the card. Never set by
-# the package itself.
+# Switch: run every wrapper's plain twin even on CUDA tensors, so a whole
+# forward can be compared kernel-vs-twin on the card (tests, chip_smoke),
+# or on meta tensors, so ``tools.efficiency`` can run the model for shapes
+# alone. The package sets it nowhere else.
 _FORCE_PLAIN = False
 
 

@@ -17,17 +17,33 @@ seeded from ``cfg.seed``, the epoch and the stream (:func:`generators`).
 The numbers differ from ``jax.random``'s; tests feed both sides the same
 draws through :class:`Draws`.
 
-Not ported yet: ``.h5`` loading, checkpoints (the optimizer state keeps
-optax's fields for them) and multi-device data parallelism.
+Checkpoints (:func:`save_checkpoint`, :func:`latest_checkpoint`,
+:func:`restore_checkpoint`) carry the full state, as the JAX package's
+orbax ones do: the parameters, the optimizer state (both moments,
+``count``, ``notfinite_count``, ``last_finite``, ``total_notfinite``), the
+step and the epoch, as ``checkpoints/epoch_%04d.pt`` (``torch.save``, read
+back with ``weights_only=True``). Restoring also takes a JAX checkpoint
+exported to ``.npz`` by ``scripts/export_npz.py``: the flax param tree
+under ``params/<scope>/.../<leaf>`` keys, optax's first and second moments
+under ``mu/...`` and ``nu/...`` with the same paths, and ``count``,
+``notfinite_count``, ``last_finite``, ``total_notfinite``, ``step`` and
+``epoch``; the parameters and both moments go through
+``bridge.state_dict_from_flax`` (keys and layouts). The per-epoch
+generators make a resumed run draw what an uninterrupted one draws.
+
+Not ported yet: multi-device data parallelism.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.data.datasets import (
     TrainArrays, apply_augment, batch_indices, draw_augment,
@@ -73,7 +89,8 @@ class Trainer:
     """``Trainer(cfg, steps_per_epoch, state_dict, device)``: the model in
     train mode with the given parameters, its loss, and the optimizer
     state, on the card unless ``device="cpu"``. ``trainer.model.eval()``
-    turns dropout off (parity tests)."""
+    turns dropout off (parity tests). ``step`` counts the steps taken, the
+    skipped ones too (the JAX ``TrainState.step``)."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int, state_dict: dict, device="cuda"):
         self.cfg, self.steps_per_epoch, self.device = cfg, steps_per_epoch, torch.device(device)
@@ -84,6 +101,7 @@ class Trainer:
         self.params = dict(self.model.named_parameters())
         self.opt = Optimizer(cfg, steps_per_epoch)
         self.opt_state = self.opt.init(self.params)
+        self.step = 0
         self._data = None  # (data, lr, hr) staged on the device
 
     def draw(self, gens: dict, lr_shape, mask_k: int, ratio: float) -> Draws:
@@ -122,6 +140,7 @@ class Trainer:
         loss = self.loss_fn(sr, y)
         grads = dict(zip(self.params, torch.autograd.grad(loss, list(self.params.values()))))
         self.opt.step_(self.params, grads, self.opt_state)
+        self.step += 1
         with torch.no_grad():
             if y.shape[1] // ao >= 11 and y.shape[2] // ao >= 11:
                 p, s = lf_metrics(y[..., 0], sr[..., 0], ao)
@@ -168,3 +187,92 @@ class Trainer:
         out = {k: float(torch.stack(v).mean()) for k, v in acc.items()}
         out["mask_ratio"] = ratio
         return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the full train state
+# ---------------------------------------------------------------------------
+
+OPT_COUNTS = ("count", "notfinite_count", "last_finite", "total_notfinite")
+
+
+def save_checkpoint(ckpt_dir: str | Path, trainer: Trainer, epoch: int) -> Path:
+    """Write ``ckpt_dir/epoch_%04d.pt`` (through a temporary name and a
+    rename, so a run cut while saving leaves no partial ``epoch_*``)."""
+    st = trainer.opt_state
+    state = {
+        "params": {k: p.detach().cpu() for k, p in trainer.params.items()},
+        "mu": st.mu_flat.cpu(), "nu": st.nu_flat.cpu(),
+        **{k: getattr(st, k).cpu() for k in OPT_COUNTS},
+        "step": trainer.step, "epoch": epoch,
+    }
+    path = Path(ckpt_dir) / f"epoch_{epoch:04d}.pt"
+    tmp = path.with_name(f".{path.name}.tmp")
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
+    d = Path(ckpt_dir)
+    if not d.is_dir():
+        return None
+    cands = sorted(p for p in d.iterdir() if p.name.startswith("epoch_"))
+    return cands[-1] if cands else None
+
+
+def _nest(flat: dict[str, np.ndarray], prefix: str) -> dict:
+    """The ``prefix/a/b/leaf`` entries of an exported ``.npz`` as a nested
+    dict {a: {b: {leaf: array}}}."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        head, _, path = key.partition("/")
+        if head != prefix:
+            continue
+        *scopes, leaf = path.split("/")
+        node = tree
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = arr
+    return tree
+
+
+def _read_checkpoint(path: str | Path, cfg: Config) -> dict:
+    """A ``.pt`` checkpoint, or an exported JAX ``.npz`` converted to the
+    same dict: ``params`` (a state_dict), ``mu``/``nu`` (state_dicts), the
+    optimizer's counts, ``step`` and ``epoch``."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    out = {k: state_dict_from_flax(_nest(flat, k), cfg) for k in ("params", "mu", "nu")}
+    out.update({k: torch.from_numpy(np.asarray(flat[k])) for k in OPT_COUNTS})
+    out.update(step=int(flat["step"]), epoch=int(flat["epoch"]))
+    return out
+
+
+def load_params(path: str | Path, cfg: Config) -> tuple[dict[str, torch.Tensor], int]:
+    """(state_dict, epoch) of a ``.pt`` checkpoint or an exported ``.npz``."""
+    ck = _read_checkpoint(path, cfg)
+    return ck["params"], int(ck["epoch"])
+
+
+def restore_checkpoint(path: str | Path, trainer: Trainer) -> int:
+    """Load a ``.pt`` checkpoint or an exported JAX ``.npz`` into
+    ``trainer`` (parameters, optimizer state, step), in place; returns the
+    checkpoint's epoch. The moments are laid out in the trainer's
+    ``named_parameters`` order."""
+    ck = _read_checkpoint(path, trainer.cfg)
+    st = trainer.opt_state
+    with torch.no_grad():
+        for k, p in trainer.params.items():
+            p.copy_(ck["params"][k])
+        for name, flat in (("mu", st.mu_flat), ("nu", st.nu_flat)):
+            m = ck[name]
+            flat.copy_(m if isinstance(m, torch.Tensor) else
+                       torch.cat([m[k].reshape(-1) for k in trainer.params]))
+    for k in OPT_COUNTS:
+        setattr(st, k, ck[k].to(device=getattr(st, k).device, dtype=getattr(st, k).dtype))
+    trainer.step = int(ck["step"])
+    return int(ck["epoch"])

@@ -10,8 +10,10 @@ K10's ``hlfr_tail`` on CPU tensors, a CPU forward of the small flagship, a
 tiled and a whole-scene ``evaluate_sets`` (the latter also under
 ``scan_impl='gated'`` and ``'fused'``), ``infer_submission`` on tiny
 scenes and one train step, also one under ``scan_impl='gated'``, then a
-forward and one train step of a one-block EPIT, and checks that no blocked
-module was loaded. The machine with the card has none of the
+forward and one train step of a one-block EPIT, then the entry points
+(``scripts.train``, ``test``, ``inference`` with its gate, and
+``validate_submission``) on ``.npz`` files written there with numpy, and
+checks that no blocked module was loaded. The machine with the card has none of the
 third-party ones, and the port imports nothing of the JAX package. Every
 model and trainer is asked for the CPU (``device="cpu"``); the entry points
 default to the card. On the card's machine:
@@ -141,6 +143,40 @@ before = trainer.params["Conv_2.weight"].clone()
 m = trainer.run_epoch(data, 0)
 assert np.isfinite(m["loss"]) and int(trainer.opt_state.count) == 1, m
 assert not torch.equal(before, trainer.params["Conv_2.weight"])
+# the entry points on .npz files written here with numpy: train (1 epoch
+# of 1 step, validating at its end), test, inference (the gate, the BMP
+# tree, the zip) and the validator
+import json
+from lfsr_tpu_torch.cli import build_parser, config_from_args
+from lfsr_tpu_torch.scripts import inference, test, train, validate_submission
+from lfsr_tpu_torch.tools import submission
+
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    for i in range(2):
+        d = tmp / "train" / "SR_5x5_4x" / "Set"
+        d.mkdir(parents=True, exist_ok=True)
+        np.savez(d / f"{i:06d}.npz", Lr_SAI_y=rng.random((40, 40), dtype=np.float32),
+                 Hr_SAI_y=rng.random((160, 160), dtype=np.float32))
+    for subset in ("Real", "Synth"):
+        d = tmp / "test" / "SR_5x5_4x" / subset
+        d.mkdir(parents=True, exist_ok=True)
+        np.savez(d / "scene.npz", Lr_SAI_y=rng.random((50, 50), dtype=np.float32),
+                 Hr_SAI_y=rng.random((200, 200), dtype=np.float32),
+                 Sr_SAI_cbcr=np.full((200, 200, 2), 0.5, np.float32))
+    argv = ["--compute_dtype", "float32", "--batch_size", "2", "--epoch", "1",
+            "--model_kwargs", json.dumps(cfg.model_kwargs), "--path_for_train",
+            str(tmp / "train"), "--path_for_test", str(tmp / "test"), "--path_log", str(tmp / "log")]
+    ecfg = config_from_args(build_parser().parse_args(argv))
+    trainer = train.main(ecfg, device="cpu")
+    assert trainer.step == 1 and int(trainer.opt_state.count) == 1
+    test.main(ecfg, device="cpu")
+    submission.EXPECTED_SCENES = {"Real": 1, "Synth": 1}
+    submission.EXPECTED_DIMS = {"Real": (40, 40), "Synth": (40, 40)}
+    zip_path = inference.main(ecfg, out_root=str(tmp / "sub"), device="cpu")
+    assert validate_submission.main([str(zip_path)]) == 0
+    assert len(list((tmp / "log").rglob("*.pt"))) == 1
+    assert len(list((tmp / "log").rglob("evaluation*.csv"))) == 2
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")

@@ -476,6 +476,7 @@ def k3_passes(args, where: str) -> None:
 
 
 def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
+    from lfsr_tpu_torch import trace
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
 
@@ -502,27 +503,26 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8" else "synth")
             for k in pairs}
-    # the kernels with two paths: (the dict counting them, which one a call
-    # takes); K4 and K5 share a module, each with its own counter
+    # the kernels with two paths: which one a call takes (each counted in
+    # the trace table as launches/<K>/<path>)
     path_of = {
-        "K4": (cs.GATHER_PATH_LAUNCHES, lambda a: cs.gather_path(a[0].dtype, a[0].shape[-1])),
-        "K5": (cs.PATH_LAUNCHES, lambda a: cs.kernel_path(a[1].dtype, a[1].shape[-1])),
-        "K6": (wa.PATH_LAUNCHES, lambda a: wa.kernel_path(a[0].shape[-1], 4, 8)),
-        "K7": (block.PATH_LAUNCHES, lambda a: block.kernel_path(a[3].dtype)),
-        "K8": (ma.PATH_LAUNCHES, lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4])),
+        "K4": lambda a: cs.gather_path(a[0].dtype, a[0].shape[-1]),
+        "K5": lambda a: cs.kernel_path(a[1].dtype, a[1].shape[-1]),
+        "K6": lambda a: wa.kernel_path(a[0].shape[-1], 4, 8),
+        "K7": lambda a: block.kernel_path(a[3].dtype),
+        "K8": lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4]),
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
         for name, where, args in kernel_cases(dtype, g, only, n24_only):
             kern, plain = pairs[name]
             big = where in WHOLE and name in SCANS
-            before = dict(path_of[name][0]) if name in path_of else None
+            before = trace.counts(f"launches/{name}/")
             got = kern(*args)
             torch.cuda.synchronize()
             path = None
             if name in path_of:  # which of its two kernels took the call
-                counts, rule = path_of[name]
-                path = rule(args)
+                counts, path = trace.counts(f"launches/{name}/"), path_of[name](args)
                 assert counts == {k: v + (k == path) for k, v in before.items()}, (name, counts)
                 # the flagship's K4 takes its tile kernel; K6, and K5 and K7
                 # in bf16, take the tensor cores
@@ -694,6 +694,21 @@ def k8_kernel(cfg):
     return kernel_path(dtype, 128 // HEADS)
 
 
+def launch_counts() -> dict:
+    """Each kernel's launches since the last :func:`reset_launch_counts`
+    (``launches/<K>`` of the trace table), by its name in ``ops.KERNELS``."""
+    from lfsr_tpu_torch import trace
+    from lfsr_tpu_torch.ops import KERNELS
+
+    return {name: trace.counter(f"launches/{name.split()[0]}") for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    from lfsr_tpu_torch import trace
+
+    trace.reset_counts("launches/")
+
+
 def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     """Every kernel's launches == ``want`` (0 for a kernel it does not list);
     every K4 launch (the flagship's 64 channels, bf16 or float32) on its
@@ -702,20 +717,20 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     tensor-core kernel in bf16 (``cfg`` None: the flagship's default, bf16)
     and on its CUDA-core one in float32; for ``cfg``'s EPIT, every K8
     launch by the kernel ``k8_kernel`` names."""
-    from lfsr_tpu_torch.ops import (
-        K4_PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES, K7_PATH_LAUNCHES, PATH_LAUNCHES,
-    )
+    from lfsr_tpu_torch import trace
 
+    k4_paths, k5_paths, k6_paths, k7_paths, k8_paths = (
+        trace.counts(f"launches/{k}/") for k in ("K4", "K5", "K6", "K7", "K8"))
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
     k4 = counts["K4 cross_scan_gather"]
-    assert K4_PATH_LAUNCHES == {"tile": k4, "warp": 0}, (what, K4_PATH_LAUNCHES, k4)
+    assert k4_paths == {"tile": k4, "warp": 0}, (what, k4_paths, k4)
     if k4:
-        log(f"[{what}] K4 launches by kernel {K4_PATH_LAUNCHES}: all {k4} on the tile kernel")
+        log(f"[{what}] K4 launches by kernel {k4_paths}: all {k4} on the tile kernel")
     bf16 = cfg is None or cfg.compute_dtype == "bfloat16"
-    for name, paths in (("K5 cross_scan_scatter", K5_PATH_LAUNCHES),
-                        ("K7 ln_msl", K7_PATH_LAUNCHES)):
+    for name, paths in (("K5 cross_scan_scatter", k5_paths),
+                        ("K7 ln_msl", k7_paths)):
         n = counts[name]
         assert paths == ({"mma": n, "fma": 0} if bf16 else {"mma": 0, "fma": n}), (
             what, name, paths, n)
@@ -723,14 +738,14 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
             log(f"[{what}] {name.split()[0]} launches by kernel {paths}: all {n} on the "
                 f"{'tensor-core' if bf16 else 'CUDA-core'} kernel")
     k6 = counts["K6 window_mha_fused"]
-    assert K6_PATH_LAUNCHES == {"mma": k6, "fma": 0}, (what, K6_PATH_LAUNCHES, k6)
+    assert k6_paths == {"mma": k6, "fma": 0}, (what, k6_paths, k6)
     if k6:
-        log(f"[{what}] K6 launches by kernel {K6_PATH_LAUNCHES}: all {k6} on the tensor-core "
+        log(f"[{what}] K6 launches by kernel {k6_paths}: all {k6} on the tensor-core "
             f"kernel")
     if cfg is not None and cfg.model_name == "EPIT":
         k8, path = counts["K8 masked_mha_fused"], k8_kernel(cfg)
-        assert PATH_LAUNCHES[path] == k8 > 0, (PATH_LAUNCHES, k8)
-        log(f"[{what}] K8 launches by kernel {PATH_LAUNCHES}: all {k8} on the "
+        assert k8_paths[path] == k8 > 0, (k8_paths, k8)
+        log(f"[{what}] K8 launches by kernel {k8_paths}: all {k8} on the "
             f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel")
 
 
@@ -747,7 +762,7 @@ def run_tiled(model, cfg, per_dispatch: dict, what: str = "tiled") -> dict:
     (warmed up first): launch counts (``per_dispatch`` per model call),
     finite SR and metrics, the SR views against the same run on the plain
     twins, bicubic beside it, ms/scene. Returns the timed run's launches."""
-    from lfsr_tpu_torch.ops import _cuda, launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.ops import _cuda
     from lfsr_tpu_torch.ops.tiling import tile_counts
     from lfsr_tpu_torch.train.evaluate import evaluate_sets
 
@@ -793,7 +808,7 @@ def whole_dispatches(model, cfg, synth: list, real: list, what: str, impl: str =
     launch counts per dispatch (K7 12 on both geometries), finite
     SR and metrics, ms/scene and peak memory. Returns the launches of both
     and, per geometry, (scene 0's SR views, ms/scene, peak GiB)."""
-    from lfsr_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.ops import KERNELS
     from lfsr_tpu_torch.train.evaluate import _whole_pad_batch, evaluate_sets
 
     ang, s, mb = cfg.angRes, cfg.scale_factor, cfg.whole_scene_minibatch
@@ -976,7 +991,6 @@ def entry_train(flags: list, log_dir: Path, epochs: int, steps: int, dispatches:
     validation's ``dispatches``. Returns (cfg, trainer, seconds, epoch
     seconds, checkpoint-save seconds)."""
     from lfsr_tpu_torch.cli import build_parser, config_from_args
-    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
     from lfsr_tpu_torch.scripts import train
     from lfsr_tpu_torch.train.trainer import Trainer
 
@@ -998,7 +1012,6 @@ def run_entry(synth: list, real: list) -> dict:
     """The entry-point phase (module docstring, phase 6). Returns its
     launches, each run counted between its own reset and read."""
     from lfsr_tpu_torch.cli import build_parser, config_from_args
-    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
     from lfsr_tpu_torch.scripts import check_efficiency, inference, test, validate_submission
     from lfsr_tpu_torch.train.evaluate import evaluate_sets
     from lfsr_tpu_torch.train.trainer import latest_checkpoint, restore_checkpoint, save_checkpoint
@@ -1153,7 +1166,7 @@ def check_grads(sd, data, cfg, per_step: dict, what: str) -> None:
     """One float32 train step's parameter gradients on the kernels vs on the
     plain twins (``_cuda.force_plain``), same batch (``cfg``'s size), masks
     and dropout mask."""
-    from lfsr_tpu_torch.ops import _cuda, launch_counts, reset_launch_counts
+    from lfsr_tpu_torch.ops import _cuda
     from lfsr_tpu_torch.train import masking
     from lfsr_tpu_torch.train.trainer import Trainer, generators
 
@@ -1201,7 +1214,6 @@ def run_train(sd, cfg, per_step: dict, profile: bool, what: str) -> dict:
     """The batch-8 train step of ``cfg``'s model: warm-up, a timed
     ``run_epoch``, the NaN-skip and the gradient checks. Returns the
     epoch's launches."""
-    from lfsr_tpu_torch.ops import launch_counts, reset_launch_counts
     from lfsr_tpu_torch.train.masking import num_masked_views
     from lfsr_tpu_torch.train.trainer import _TRAIN_FLAG_MODELS, Draws, Trainer, generators
 
@@ -1265,7 +1277,7 @@ def run_k9a_op() -> dict:
     on the plain twin (``_cuda.force_plain``): y within F32_BOUND and each
     gradient within GRAD_BOUND of the twin's. Returns the kernel run's
     launches."""
-    from lfsr_tpu_torch.ops import _cuda, launch_counts, reset_launch_counts, scan
+    from lfsr_tpu_torch.ops import _cuda, scan
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     B, L, Di, N, R = 8, 25600, 80, 16, 4

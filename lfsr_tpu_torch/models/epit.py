@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.common import Conv, LayerNorm, lrelu, pixel_shuffle
 from lfsr_tpu_torch.models.losses import l1
@@ -59,7 +60,7 @@ def band_mask(rows: int, cols: int, k_r: int, k_c: int, device: torch.device) ->
     geometry and device). Made outside inference mode, so a mask first built
     during evaluation can be saved for a later training step's backward."""
     with torch.inference_mode(False):
-        return torch.as_tensor(_band_mask(rows, cols, k_r, k_c), device=device)
+        return trace.upload(_band_mask(rows, cols, k_r, k_c), device)
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
@@ -76,7 +77,7 @@ def dot_product_attention(q, k, v, mask, heads: int):
     hd = D // heads
     dt = q.dtype
     split = lambda a: a.reshape(B, L, heads, hd)
-    qs = split(q) / torch.tensor(hd**0.5, dtype=dt, device=q.device)
+    qs = split(q) / trace.upload(hd**0.5, q.device, dt)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, split(k))
     p = torch.softmax(s.float() + mask.float(), dim=-1).to(dt)
     return torch.einsum("bhqk,bkhd->bqhd", p, split(v)).reshape(B, L, D)

@@ -18,6 +18,13 @@ below the TPU's gate, on it rounded to the compute dtype at the gate, so
 JAX's two branches), and once per forward K10 (the HLFR tail: expansion
 matmul + lrelu + the folded out-conv). ``module.train()`` turns on the
 blocks' dropout (JAX ``train=True``).
+
+A forward runs in the spans (``trace.span``) ``model.input``,
+``model.ife``, ``model.block`` (each block, with ``model.block.ssm`` around
+its cross-scan SSM), ``model.window_attention``, ``model.fusion``,
+``model.hlfr`` and ``model.output``; its host data (the window index
+table, the folded out-conv's matrix, dropout's scale) goes up through
+``trace.upload``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.cnn_baselines import bicubic_up
 from lfsr_tpu_torch.models.common import (
@@ -149,7 +157,7 @@ def dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
     drawn from ``generator`` (on y's device)."""
     keep = 1.0 - rate
     mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
-    return torch.where(mask, y / torch.tensor(keep, dtype=y.dtype, device=y.device), 0)
+    return torch.where(mask, y / trace.upload(keep, y.device, y.dtype), 0)
 
 
 class LFVSSMBlock(nn.Module):
@@ -188,7 +196,8 @@ class LFVSSMBlock(nn.Module):
         else:
             xn = layer_norm_fast(x, ln.weight, ln.bias).to(dt)
             local = msl(xn)
-        glob = self.CrossScanSSM_0(xn)
+        with trace.span("model.block.ssm"):
+            glob = self.CrossScanSSM_0(xn)
         wf = mix_kernel(self.Conv_0, dt)
         y = local.to(dt) @ wf[:c] + glob.to(dt) @ wf[c:]
         y = self.ECA_0(y)
@@ -225,7 +234,7 @@ class WindowAttention(nn.Module):
                 f"WindowAttention: only the fused branch (H, W multiples of {ws}) is "
                 f"ported; got {tuple(x.shape)}"
             )
-        idx = torch.as_tensor(self._rel_index, device=x.device)
+        idx = trace.upload(self._rel_index, x.device)
         bias = self.rel_pos_table[idx].reshape(T, T, heads)
         bias_big = bias.permute(0, 2, 1).reshape(T, heads * T).contiguous()
         ln = self.LayerNorm_0
@@ -342,7 +351,7 @@ def fold_out_conv(k3: torch.Tensor, r: int) -> torch.Tensor:
                     u, v = py + dy, px + dx
                     M[u // r + 1, v // r + 1, (u % r) * r + (v % r), py * r + px,
                       dy + kh // 2, dx + kw // 2] = 1.0
-    Mt = torch.as_tensor(M, device=k3.device).to(k3.dtype)
+    Mt = trace.upload(M, k3.device).to(k3.dtype)
     return torch.einsum("YXioab,abc->YXcio", Mt, k3[..., 0]).reshape(3, 3, cin * rr, rr)
 
 
@@ -467,26 +476,35 @@ class LFMambaX(nn.Module):
         In train mode the blocks' dropout draws from ``generator`` (flax's
         ``rngs={"dropout": key}``), which is then required."""
         a, s, dt = self.cfg.angRes, self.cfg.scale_factor, self.dtype
-        up = bicubic_up(x, s)
-        h, w = x.shape[1], x.shape[2]
-        macpi = self.cfg.mk("use_macpi", True) and h % a == 0 and w % a == 0
-        xin = x
-        if macpi:
-            xin = sai_to_macpi(x.permute(0, 3, 1, 2), a).permute(0, 2, 3, 1)
-        shallow = self.IFE_0(xin.to(dt))
+        with trace.span("model.input"):
+            up = bicubic_up(x, s)
+            h, w = x.shape[1], x.shape[2]
+            macpi = self.cfg.mk("use_macpi", True) and h % a == 0 and w % a == 0
+            xin = x
+            if macpi:
+                xin = sai_to_macpi(x.permute(0, 3, 1, 2), a).permute(0, 2, 3, 1)
+            xin = xin.to(dt)
+        with trace.span("model.ife"):
+            shallow = self.IFE_0(xin)
         feat = shallow
         blocks = []
         bi = 0
         for phase, (n, attn_scale) in enumerate(self.phases):
             for _ in range(n):
-                feat = getattr(self, f"block_{bi}")(feat, generator)
+                with trace.span("model.block"):
+                    feat = getattr(self, f"block_{bi}")(feat, generator)
                 blocks.append(feat)
                 bi += 1
             if attn_scale is not None:
-                feat = getattr(self, f"win_attn_{phase}")(feat)
-        feat = self.LSFL_0(self.SpatialAttention_0(feat))
-        staged = self.ProgressiveFusion_0(blocks)
-        out = self.HLFR_0(feat + staged + shallow)
-        if macpi:
-            out = macpi_to_sai(out.permute(0, 3, 1, 2), a).permute(0, 2, 3, 1)
-        return out.float() + up
+                with trace.span("model.window_attention"):
+                    feat = getattr(self, f"win_attn_{phase}")(feat)
+        with trace.span("model.fusion"):
+            feat = self.LSFL_0(self.SpatialAttention_0(feat))
+            staged = self.ProgressiveFusion_0(blocks)
+            fused = feat + staged + shallow
+        with trace.span("model.hlfr"):
+            out = self.HLFR_0(fused)
+        with trace.span("model.output"):
+            if macpi:
+                out = macpi_to_sai(out.permute(0, 3, 1, 2), a).permute(0, 2, 3, 1)
+            return out.float() + up

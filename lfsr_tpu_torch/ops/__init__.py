@@ -1,30 +1,27 @@
 """Ops of the port: layouts, resize, tiling, metrics, and the kernels.
 
 Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
-plain twin on CPU tensors) with a launch counter; K2 and K3 run inside the
-scan's autograd Function (``scan.ScanProj``) and K4-K8, K9a-K9c and K10
-inside ``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them
-with their sources and the TPU kernels they replace; K8's ``PATH_LAUNCHES``
-and K5's, K6's and K7's ``K5_PATH_LAUNCHES``, ``K6_PATH_LAUNCHES`` and
-``K7_PATH_LAUNCHES`` split their launches between each one's tensor-core
-(``"mma"``) and CUDA-core (``"fma"``) kernels; K4's ``K4_PATH_LAUNCHES``
-between its tile kernel (``"tile"``) and its one-warp kernel (``"warp"``).
+plain twin on CPU tensors) that runs in its span (``trace.span("K1")`` ...)
+and counts its launches in the trace table (``launches/K1`` ...;
+``_cuda.counted``); K2 and K3 run inside the scan's autograd Function
+(``scan.ScanProj``) and K4-K8, K9a-K9c and K10 inside ``_cuda.PlainVJP``
+when a gradient is wanted. ``KERNELS`` lists them with their sources and
+the TPU kernels they replace. K5's, K6's, K7's and K8's counters
+``launches/<K>/mma`` and ``launches/<K>/fma`` split their launches between
+each one's tensor-core and CUDA-core kernels; K4's ``launches/K4/tile``
+and ``launches/K4/warp`` between its tile kernel and its one-warp kernel.
 """
 
 from __future__ import annotations
 
-from lfsr_tpu_torch.ops.block import PATH_LAUNCHES as K7_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.block import ln_msl
-from lfsr_tpu_torch.ops.cross_scan import GATHER_PATH_LAUNCHES as K4_PATH_LAUNCHES
-from lfsr_tpu_torch.ops.cross_scan import PATH_LAUNCHES as K5_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.head import hlfr_tail
-from lfsr_tpu_torch.ops.masked_attention import PATH_LAUNCHES, masked_mha_fused
+from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
     mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
     selective_scan_proj_bwd, selective_scan_proj_states,
 )
-from lfsr_tpu_torch.ops.window_attention import PATH_LAUNCHES as K6_PATH_LAUNCHES
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
 
 # name -> (wrapper, CUDA source, TPU kernel it replaces)
@@ -77,16 +74,3 @@ KERNELS = {
     ),
 }
 
-
-def reset_launch_counts() -> None:
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
-    # K8's, K4's, K5's, K6's and K7's per-kernel counts
-    for counts in (PATH_LAUNCHES, K4_PATH_LAUNCHES, K5_PATH_LAUNCHES, K6_PATH_LAUNCHES,
-                   K7_PATH_LAUNCHES):
-        for path in counts:
-            counts[path] = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}

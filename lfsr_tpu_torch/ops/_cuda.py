@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from lfsr_tpu_torch import trace
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -265,10 +267,27 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def counted(fn):
-    """Give a kernel wrapper its launch counter (``fn.launches``)."""
-    fn.launches = 0
-    return fn
+def counted(kernel: str, paths: tuple = ()):
+    """Give a kernel wrapper its span ``kernel`` (``trace.span``; ``fn.kernel``
+    names it) and its launch counters in the trace table, ``launches/<K>``
+    and ``launches/<K>/<path>`` for each of its kernels, which
+    :func:`launched` counts."""
+    trace.declare(f"launches/{kernel}", *(f"launches/{kernel}/{p}" for p in paths))
+
+    def wrap(fn):
+        out = trace.span(kernel)(fn)
+        out.kernel = kernel
+        return out
+
+    return wrap
+
+
+def launched(kernel: str, path: str | None = None) -> None:
+    """Count one launch of wrapper ``kernel`` (through ``path``, one of its
+    kernels, where it has two)."""
+    trace.count(f"launches/{kernel}")
+    if path is not None:
+        trace.count(f"launches/{kernel}/{path}")
 
 
 # --------------------------------------------------------------------------
@@ -285,16 +304,17 @@ def wants_grad(*tensors) -> bool:
 class PlainVJP(torch.autograd.Function):
     """``fwd(*args)`` (a kernel, or its twin on the CPU) with the gradient
     of ``plain(*args)``: backward recomputes the plain twin from the saved
-    inputs under ``enable_grad`` and returns ``torch.autograd.grad`` of it.
+    inputs under ``enable_grad`` and returns ``torch.autograd.grad`` of it,
+    inside the span ``vjp.<kernel>``.
     This is what the JAX custom_vjps of K4-K7 do (they differentiate the XLA
     reference; the TPU has no backward kernel for them).
 
-        PlainVJP.apply(fwd, plain, *args)
+        PlainVJP.apply(kernel, fwd, plain, *args)
     """
 
     @staticmethod
-    def forward(ctx, fwd, plain, *args):
-        ctx.plain = plain
+    def forward(ctx, kernel, fwd, plain, *args):
+        ctx.kernel, ctx.plain = kernel, plain
         ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
         ctx.consts = [None if t else a for a, t in zip(args, ctx.is_tensor)]
         ctx.save_for_backward(*(a for a, t in zip(args, ctx.is_tensor) if t))
@@ -302,15 +322,16 @@ class PlainVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        saved = iter(ctx.saved_tensors)
-        need = ctx.needs_input_grad[2:]
-        args = [next(saved).detach().requires_grad_(nd) if t else c
-                for t, c, nd in zip(ctx.is_tensor, ctx.consts, need)]
-        wrt = [a for a, nd in zip(args, need) if nd]
-        with torch.enable_grad():
-            outs = ctx.plain(*args)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                           [g for _, g in pairs], allow_unused=True))
-        return (None, None, *(next(got) if nd else None for nd in need))
+        with trace.span("vjp." + ctx.kernel):
+            saved = iter(ctx.saved_tensors)
+            need = ctx.needs_input_grad[3:]
+            args = [next(saved).detach().requires_grad_(nd) if t else c
+                    for t, c, nd in zip(ctx.is_tensor, ctx.consts, need)]
+            wrt = [a for a, nd in zip(args, need) if nd]
+            with torch.enable_grad():
+                outs = ctx.plain(*args)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+                got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                               [g for _, g in pairs], allow_unused=True))
+            return (None, None, None, *(next(got) if nd else None for nd in need))

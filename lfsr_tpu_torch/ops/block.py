@@ -18,7 +18,7 @@ port computes JAX's function at every shape.
 On a CUDA tensor :func:`ln_msl` launches one of the two kernels of
 csrc/ln_msl.cu, chosen by the weights' dtype (:func:`kernel_path`):
 ``"mma"`` for bfloat16 (tensor cores; x float32 or bfloat16), ``"fma"`` for
-float32 (CUDA cores). ``PATH_LAUNCHES`` counts each. On a CPU tensor it
+float32 (CUDA cores); ``launches/K7/<path>`` counts each. On a CPU tensor it
 runs the plain twin :func:`ln_msl_plain` (the port of ``ln_msl_ref``, and
 of the plain branch in the float32-input mode). When a gradient is wanted
 it goes through ``_cuda.PlainVJP`` (kernel forward, the twin's gradient),
@@ -35,8 +35,8 @@ from lfsr_tpu_torch.ops import _cuda
 from lfsr_tpu_torch.ops.cross_scan import EPS, layer_norm_fast
 
 LN_MSL_MIN_PIXELS = 4 * 160 * 160
-# launches of each kernel (their sum is ln_msl.launches)
-PATH_LAUNCHES = {"mma": 0, "fma": 0}
+# K7's two kernels, each counted in the trace table as launches/K7/<path>
+PATHS = ("mma", "fma")
 
 
 def ln_msl_supported(x: torch.Tensor) -> bool:
@@ -93,14 +93,15 @@ def ln_msl_plain(x, gamma, beta, whm, wrest, wk, slope: float = 0.1):
     return xn, msl_plain(xn, whm, wrest, wk, slope)
 
 
-@_cuda.counted
+@_cuda.counted("K7", PATHS)
 def ln_msl(x, gamma, beta, whm, wrest, wk, slope: float = 0.1):
     """K7: x [B, H, W, C] of the weights' dtype, or float32 with bfloat16
     weights (the float32-input mode); gamma/beta [C] float32; whm [c4, C],
     wrest [C-c4, C] and wk [3, 3, C-c4] of one dtype. Returns (xn, local)
     in the weights' dtype; differentiable in every tensor."""
     if _cuda.wants_grad(x, gamma, beta, whm, wrest, wk):
-        return _cuda.PlainVJP.apply(_ln_msl, ln_msl_plain, x, gamma, beta, whm, wrest, wk, slope)
+        return _cuda.PlainVJP.apply("K7", _ln_msl, ln_msl_plain, x, gamma, beta, whm, wrest, wk,
+                                    slope)
     return _ln_msl(x, gamma, beta, whm, wrest, wk, slope)
 
 
@@ -132,6 +133,5 @@ def _ln_msl(x, gamma, beta, whm, wrest, wk, slope):
                  whm.data_ptr(), wrest.data_ptr(), wk.data_ptr(), xn.data_ptr(),
                  local.data_ptr(), b, h, w, c, c4, slope, EPS, x_code, code,
                  _cuda.stream_of(x))
-    ln_msl.launches += 1
-    PATH_LAUNCHES[kernel_path(dt)] += 1
+    _cuda.launched("K7", kernel_path(dt))
     return xn, local

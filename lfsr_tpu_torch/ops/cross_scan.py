@@ -16,11 +16,11 @@ K4 has two kernels, chosen by :func:`gather_path`: ``"tile"`` (a channel
 quarter a multiple of 8 bytes: tiles of :func:`gather_tile` consecutive
 positions, each quarter copied from a run of pixels, LayerNorm from shared
 memory) and ``"warp"`` (the other widths: a warp a position);
-``GATHER_PATH_LAUNCHES`` counts each. K5 has two kernels, chosen by
+``launches/K4/<path>`` counts each. K5 has two kernels, chosen by
 :func:`kernel_path`: ``"mma"`` (bfloat16, C a multiple of 16: the mix on
 the tensor cores, 2-D tiles of :func:`scatter_tile` pixels read from seq in
 runs of consecutive positions) and ``"fma"`` (the rest: CUDA cores);
-``PATH_LAUNCHES`` counts each. Each choice is a rule, not a fallback: a
+``launches/K5/<path>`` counts each. Each choice is a rule, not a fallback: a
 kernel that fails to launch raises.
 When a gradient is wanted they go through ``_cuda.PlainVJP``: the kernel
 forward, the plain twin's gradient (the JAX custom_vjps at
@@ -34,10 +34,10 @@ import torch
 from lfsr_tpu_torch.ops import _cuda
 
 EPS = 1e-6
-# K5's launches of each kernel (their sum is cross_scan_scatter.launches)
-PATH_LAUNCHES = {"mma": 0, "fma": 0}
-# K4's launches of each kernel (their sum is cross_scan_gather.launches)
-GATHER_PATH_LAUNCHES = {"tile": 0, "warp": 0}
+# K5's and K4's two kernels each, counted in the trace table as
+# launches/K5/<path> and launches/K4/<path>
+PATHS = ("mma", "fma")
+GATHER_PATHS = ("tile", "warp")
 # K4 "tile": a call is cut into at least this many tiles where it can be
 # (about 8 for each of the H100's 132 SMs)
 GATHER_MIN_TILES = 1024
@@ -127,12 +127,12 @@ def scatter_tile(c: int) -> tuple[int, int]:
     return (16 if c <= 64 else 8), 16
 
 
-@_cuda.counted
+@_cuda.counted("K4", GATHER_PATHS)
 def cross_scan_gather(x, gamma, beta):
     """K4: x [B, H, W, C] -> LayerNorm(4-way permuted x) [B, H*W, C];
     differentiable in x, gamma and beta."""
     if _cuda.wants_grad(x, gamma, beta):
-        return _cuda.PlainVJP.apply(_gather, cross_scan_gather_plain, x, gamma, beta)
+        return _cuda.PlainVJP.apply("K4", _gather, cross_scan_gather_plain, x, gamma, beta)
     return _gather(x, gamma, beta)
 
 
@@ -157,18 +157,17 @@ def _gather(x, gamma, beta):
     else:
         _cuda.launch("lfsr_cross_scan_gather", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                      out.data_ptr(), b, h, w, c, EPS, code, _cuda.stream_of(x))
-    cross_scan_gather.launches += 1
-    GATHER_PATH_LAUNCHES[path] += 1
+    _cuda.launched("K4", path)
     return out
 
 
-@_cuda.counted
+@_cuda.counted("K5", PATHS)
 def cross_scan_scatter(seq, x, w, scale):
     """K5: un-permute seq [B, H*W, C], mix by w [C, C], return x + scale*y.
     ``scale`` is a one-element float32 tensor (read on the device).
     Differentiable in seq, x, w and scale."""
     if _cuda.wants_grad(seq, x, w, scale):
-        return _cuda.PlainVJP.apply(_scatter, cross_scan_scatter_plain, seq, x, w, scale)
+        return _cuda.PlainVJP.apply("K5", _scatter, cross_scan_scatter_plain, seq, x, w, scale)
     return _scatter(seq, x, w, scale)
 
 
@@ -194,6 +193,5 @@ def _scatter(seq, x, w, scale):
     else:
         _cuda.launch("lfsr_cross_scan_scatter", seq.data_ptr(), x.data_ptr(), w.data_ptr(),
                      scale.data_ptr(), out.data_ptr(), b, h, wd, c, code, _cuda.stream_of(x))
-    cross_scan_scatter.launches += 1
-    PATH_LAUNCHES[path] += 1
+    _cuda.launched("K5", path)
     return out

@@ -77,14 +77,14 @@ def _hlfr_tail(y, w1, kf, bias, slope=0.1):
     _cuda.launch("lfsr_hlfr_tail", y.data_ptr(), w1.data_ptr(), w36.data_ptr(), b.data_ptr(),
                  out.data_ptr(), B, H, W, C, Cz, *TAIL_TILES[kernel_path(dt)], float(slope), code,
                  _cuda.stream_of(y))
-    hlfr_tail.launches += 1
+    _cuda.launched("K10")
     return out
 
 
-@_cuda.counted
+@_cuda.counted("K10")
 def hlfr_tail(y, w1, kf, bias, slope: float = 0.1):
     """K10, the model's entry: y [B, H, W, C] -> [B, H, W, rr] float32."""
     args = (y, w1, kf, bias, slope)
     if _cuda.wants_grad(*args[:4]):
-        return _cuda.PlainVJP.apply(_hlfr_tail, hlfr_tail_plain, *args)
+        return _cuda.PlainVJP.apply("K10", _hlfr_tail, hlfr_tail_plain, *args)
     return _hlfr_tail(*args)

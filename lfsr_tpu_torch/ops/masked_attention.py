@@ -15,12 +15,13 @@ of csrc/masked_attention.cu, chosen by :func:`kernel_path` from the dtype
 and the head dim: bfloat16 with hd in (16, 32, 64) runs on the tensor
 cores (``"mma"``, the mask read row-major as given), float32 or hd = 8 on
 the CUDA cores (``"fma"``, the mask transposed). The choice is a rule, not
-a fallback: a kernel that fails to build or launch raises. ``PATH_LAUNCHES``
-counts the launches of each. On CPU tensors it runs the plain twin
-:func:`masked_mha_plain` (the port of ``masked_mha_ref``). When a
-gradient is wanted it goes through ``_cuda.PlainVJP`` (kernel forward, the
-twin's gradient), as the JAX custom_vjp (pallas_masked_attention.py:135-146)
-differentiates the reference: the TPU has no backward kernel for it.
+a fallback: a kernel that fails to build or launch raises.
+``launches/K8/<path>`` counts the launches of each. On CPU tensors it runs
+the plain twin :func:`masked_mha_plain` (the port of ``masked_mha_ref``).
+When a gradient is wanted it goes through ``_cuda.PlainVJP`` (kernel
+forward, the twin's gradient), as the JAX custom_vjp
+(pallas_masked_attention.py:135-146) differentiates the reference: the TPU
+has no backward kernel for it.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ from lfsr_tpu_torch.ops import _cuda
 KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 MMA_HEAD_DIMS = (16, 32, 64)
 _SMEM_LIMIT = 227 * 1024
-# launches of each kernel (their sum is masked_mha_fused.launches)
-PATH_LAUNCHES = {"mma": 0, "fma": 0}
+# K8's two kernels, each counted in the trace table as launches/K8/<path>
+PATHS = ("mma", "fma")
 
 
 def kernel_path(dtype: torch.dtype, hd: int) -> str:
@@ -75,13 +76,13 @@ def masked_mha_plain(q, k, v, mask, heads: int):
     return o.to(q.dtype)
 
 
-@_cuda.counted
+@_cuda.counted("K8", PATHS)
 def masked_mha_fused(q, k, v, mask, heads: int = 8):
     """K8: kernel on CUDA tensors, plain twin on CPU tensors. q, k, v
     [B, L, D] of one dtype (float32 or bfloat16), mask [L, L] float32;
     differentiable in all four."""
     if _cuda.wants_grad(q, k, v, mask):
-        return _cuda.PlainVJP.apply(_masked_mha, masked_mha_plain, q, k, v, mask, heads)
+        return _cuda.PlainVJP.apply("K8", _masked_mha, masked_mha_plain, q, k, v, mask, heads)
     return _masked_mha(q, k, v, mask, heads)
 
 
@@ -114,6 +115,5 @@ def _masked_mha(q, k, v, mask, heads):
         _cuda.launch("lfsr_masked_mha", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      mask_t.data_ptr(), o.data_ptr(), B, L, D, heads, 1.0 / (hd**0.5), code,
                      _cuda.stream_of(q))
-    masked_mha_fused.launches += 1
-    PATH_LAUNCHES[path] += 1
+    _cuda.launched("K8", path)
     return o

@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda
 from lfsr_tpu_torch.ops.selective_scan import (
     readout, scan_states, selective_scan, selective_scan_chunked,
@@ -196,7 +197,7 @@ def _scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     y = torch.empty_like(u)
     for _, launch in chunk_scan_passes(u, dbc, Wdt, bdt, A, D_skip, y):
         launch()
-    selective_scan_proj.launches += 1
+    _cuda.launched("K1")
     return y
 
 
@@ -218,7 +219,7 @@ def selective_scan_proj_states_plain(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_
     return y, states.transpose(2, 3).contiguous()
 
 
-@_cuda.counted
+@_cuda.counted("K2")
 def selective_scan_proj_states(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_SPACING):
     """K2: kernel on CUDA tensors, plain twin on CPU tensors. Returns
     (y, states) as :func:`selective_scan_proj_states_plain`; y is K1's."""
@@ -231,7 +232,7 @@ def selective_scan_proj_states(u, dbc, Wdt, bdt, A, D_skip, spacing=STATE_SPACIN
     states = torch.empty((B, -(-L // spacing), N, Di), dtype=torch.float32, device=u.device)
     for _, launch in chunk_scan_passes(u, dbc, Wdt, bdt, A, D_skip, y, states, spacing):
         launch()
-    selective_scan_proj_states.launches += 1
+    _cuda.launched("K2")
     return y, states
 
 
@@ -306,7 +307,7 @@ def adjoint_passes(u, dbc, dy, Wdt, bdt, A, states, outs, spacing=STATE_SPACING)
     return passes
 
 
-@_cuda.counted
+@_cuda.counted("K3")
 def selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACING):
     """K3: kernel on CUDA tensors, plain twin on CPU tensors. u, dbc, dy in
     the compute dtype; states from K2 at the same ``spacing``."""
@@ -326,7 +327,7 @@ def selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACI
             torch.empty((B, N, Di), **f32))
     for _, launch in adjoint_passes(u, dbc, dy, Wdt, bdt, A, states, outs, spacing):
         launch()
-    selective_scan_proj_bwd.launches += 1
+    _cuda.launched("K3")
     return outs
 
 
@@ -336,7 +337,8 @@ def selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states, spacing=STATE_SPACI
 
 class ScanProj(torch.autograd.Function):
     """selective_scan_proj with the custom_vjp of pallas_scan.py:286-380:
-    forward K2 (saving the states), backward K3 + the dt-projection chain."""
+    forward K2 (saving the states), backward K3 + the dt-projection chain,
+    inside the span ``vjp.K3``."""
 
     @staticmethod
     def forward(ctx, u, dbc, Wdt, bdt, A, D_skip):
@@ -345,6 +347,7 @@ class ScanProj(torch.autograd.Function):
         return y
 
     @staticmethod
+    @trace.span("vjp.K3")
     def backward(ctx, g):
         u, dbc, Wdt, bdt, A, D_skip, states = ctx.saved_tensors
         f32, R = torch.float32, Wdt.shape[0]
@@ -363,10 +366,10 @@ class ScanProj(torch.autograd.Function):
         return du, ddbc, dWdt, dbdt, dA, dD
 
 
-@_cuda.counted
+@_cuda.counted("K1")
 def selective_scan_proj(u, dbc, Wdt, bdt, A, D_skip):
     """The model's scan: K1 when no gradient is wanted, else :class:`ScanProj`
-    (K2 forward, K3 backward). ``launches`` counts K1's launches."""
+    (K2 forward, K3 backward). ``launches/K1`` counts K1's launches."""
     if _cuda.wants_grad(u, dbc, Wdt, bdt, A, D_skip):
         return ScanProj.apply(u, dbc, Wdt, bdt, A, D_skip)
     return _scan_proj(u, dbc, Wdt, bdt, A, D_skip)
@@ -419,18 +422,18 @@ def _scan_gated(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus):
     out = torch.empty((B, L, Dout), dtype=u.dtype, device=dev)
     _cuda.launch("lfsr_rows_matmul", gated.data_ptr(), Wout.data_ptr(), out.data_ptr(), B * L,
                  Di, Dout, code, stream)
-    scan_gated_fused.launches += 1
+    _cuda.launched("K9b")
     return out
 
 
-@_cuda.counted
+@_cuda.counted("K9b")
 def scan_gated_fused(u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus=False):
     """K9b, the model's entry under ``scan_impl='gated'``: the kernel (its
     twin on the CPU); with a gradient wanted, through ``_cuda.PlainVJP`` (the
     twin's gradient, as ``_sg_bwd`` differentiates ``scan_gated_ref``)."""
     args = (u, delta, A, Bc, Cc, z, D_skip, Wout, pre_softplus)
     if _cuda.wants_grad(*args[:-1]):
-        return _cuda.PlainVJP.apply(_scan_gated, scan_gated_plain, *args)
+        return _cuda.PlainVJP.apply("K9b", _scan_gated, scan_gated_plain, *args)
     return _scan_gated(*args)
 
 
@@ -480,18 +483,18 @@ def _mamba_inner(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
         z.data_ptr(), sz, y.data_ptr(), Wdt.data_ptr(), bdt.data_ptr(), A.data_ptr(),
         D_skip.data_ptr(), B, L, Di, R, N, _FROM_DBC, _cuda.DTYPE_CODES[f32], code, stream,
     )
-    mamba_inner_fused.launches += 1
+    _cuda.launched("K9c")
     return y
 
 
-@_cuda.counted
+@_cuda.counted("K9c")
 def mamba_inner_fused(xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip):
     """K9c, the model's entry under ``scan_impl='fused'``: the kernels (the
     twin on the CPU); with a gradient wanted, through ``_cuda.PlainVJP`` (the
     twin's gradient, as ``_mi_bwd`` differentiates ``mamba_inner_ref``)."""
     args = (xs, z, wconv, bconv, Wx, Wdt, bdt, A, D_skip)
     if _cuda.wants_grad(*args):
-        return _cuda.PlainVJP.apply(_mamba_inner, mamba_inner_plain, *args)
+        return _cuda.PlainVJP.apply("K9c", _mamba_inner, mamba_inner_plain, *args)
     return _mamba_inner(*args)
 
 
@@ -554,11 +557,11 @@ def _selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
         sc, y.data_ptr(), A.data_ptr(), None if D_skip is None else D_skip.data_ptr(),
         B, L, Di, N, _GIVEN_RAW if pre_softplus else _GIVEN, code, _cuda.stream_of(u),
     )
-    selective_scan_fused.launches += 1
+    _cuda.launched("K9a")
     return y
 
 
-@_cuda.counted
+@_cuda.counted("K9a")
 def selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
                          pre_softplus=False):
     """K9a, the op ``pallas_scan.selective_scan_fused`` (no model calls
@@ -567,5 +570,6 @@ def selective_scan_fused(u, delta, A, Bc, Cc, D_skip=None, chunk=SCAN_CHUNK,
     gradient, as JAX's custom_vjp takes it through the chunked scan."""
     args = (u, delta, A, Bc, Cc, D_skip, chunk, pre_softplus)
     if _cuda.wants_grad(*args[:6]):
-        return _cuda.PlainVJP.apply(_selective_scan_fused, selective_scan_fused_grad_ref, *args)
+        return _cuda.PlainVJP.apply("K9a", _selective_scan_fused, selective_scan_fused_grad_ref,
+                                    *args)
     return _selective_scan_fused(*args)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops.layout import sai_to_views, views_to_sai
 
 
@@ -42,8 +43,8 @@ def lf_divide(sai: torch.Tensor, ang: int, patch: int, stride: int) -> torch.Ten
     views = sai_to_views(sai, ang)  # [U, V, h0, w0]
     h0, w0 = views.shape[-2], views.shape[-1]
     n1, n2 = tile_counts(h0, w0, patch, stride)
-    hi = _patch_index(n1, h0, patch, stride).to(sai.device)
-    wi = _patch_index(n2, w0, patch, stride).to(sai.device)
+    hi = trace.upload(_patch_index(n1, h0, patch, stride), sai.device)
+    wi = trace.upload(_patch_index(n2, w0, patch, stride), sai.device)
     x = views.index_select(-2, hi).index_select(-1, wi)
     x = x.reshape(ang, ang, n1, patch, n2, patch)
     x = x.permute(2, 4, 0, 1, 3, 5)  # [n1, n2, U, V, p, p]

@@ -15,7 +15,7 @@ persistent CTAs laid out by :func:`mma_plan`, bf16x3 products: each
 operand split into two bf16, 16 of float32's 24 mantissa bits), the rest
 on the CUDA cores (``"fma"``: the dryrun's head dim 4, the 72-wide V8
 geometry's 18). The choice is a rule, not a fallback: a kernel that fails
-to build or launch raises. ``PATH_LAUNCHES`` counts the launches of each.
+to build or launch raises. ``launches/K6/<path>`` counts the launches of each.
 On CPU tensors it runs the plain twin :func:`window_mha_plain` (the port of
 ``window_mha_ref``). All math is float32; x's dtype is kept for I/O. When
 a gradient is wanted it goes through ``_cuda.PlainVJP`` (kernel forward,
@@ -36,8 +36,8 @@ MMA_WS, MMA_MAX_C, MAX_WINDOWS_PER_CTA = 8, 88, 2
 # the CUDA-core kernel's limits: a [C, 3C] + [C, C] weight and a window in
 # shared memory
 FMA_MAX_C, FMA_MAX_TOKENS = 80, 64
-# launches of each kernel (their sum is window_mha_fused.launches)
-PATH_LAUNCHES = {"mma": 0, "fma": 0}
+# K6's two kernels, each counted in the trace table as launches/K6/<path>
+PATHS = ("mma", "fma")
 
 
 def kernel_path(C: int, heads: int, ws: int) -> str:
@@ -112,14 +112,14 @@ def window_mha_plain(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws: int = 8,
     return (x.to(f32) + out).to(x.dtype)
 
 
-@_cuda.counted
+@_cuda.counted("K6", PATHS)
 def window_mha_fused(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws: int = 8,
                      heads: int = 4, eps: float = 1e-6):
     """K6: kernel on CUDA tensors, plain twin on CPU tensors. Weights,
     LayerNorm params, bias and the one-element attn_scale are float32; all
     tensors are differentiable."""
     if _cuda.wants_grad(x, wqkv, wout, ln_g, ln_b, bias, attn_scale):
-        return _cuda.PlainVJP.apply(_window_mha, window_mha_plain, x, wqkv, wout, ln_g, ln_b,
+        return _cuda.PlainVJP.apply("K6", _window_mha, window_mha_plain, x, wqkv, wout, ln_g, ln_b,
                                     bias, attn_scale, ws, heads, eps)
     return _window_mha(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws, heads, eps)
 
@@ -158,6 +158,5 @@ def _window_mha(x, wqkv, wout, ln_g, ln_b, bias, attn_scale, ws, heads, eps):
     else:
         _cuda.launch("lfsr_window_mha", *args, ws, heads, 1.0 / (hd**0.5), eps, code,
                      _cuda.stream_of(x))
-    window_mha_fused.launches += 1
-    PATH_LAUNCHES[path] += 1
+    _cuda.launched("K6", path)
     return y

@@ -18,6 +18,13 @@ patches goes through the model (a Python loop in place of the JAX
 Both score PSNR/SSIM per view on Y. EPSW Gaussian stitching and the
 angular (RE) task are not ported yet and raise ``NotImplementedError``;
 neither is multi-device sharding (``sr_scenes_whole_sharded``).
+
+The engine's stages run in spans (``trace.span``): ``eval.upload`` (a
+scene's or a geometry group's LR mosaics to the device), ``eval.pad`` (the
+scene count padded to the minibatch, each view's mirror pad),
+``eval.forward`` (each model call), ``eval.crop`` (the pad cut off, the
+calls' outputs joined), and on the tiled path ``eval.divide`` and
+``eval.integrate``. Host data goes up through ``trace.upload``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.registry import whole_scene_default
 from lfsr_tpu_torch.ops.layout import sai_to_views
@@ -50,8 +58,8 @@ def _whole_pad_batch(x: torch.Tensor, ang: int, whole_pad: int):
         return x, 0
     pb = p + (-(h0 + 2 * p) % 8)
     pr = p + (-(w0 + 2 * p) % 8)
-    hi = torch.from_numpy(symmetric_index(h0, p, pb)).to(x.device)
-    wi = torch.from_numpy(symmetric_index(w0, p, pr)).to(x.device)
+    hi = trace.upload(symmetric_index(h0, p, pb), x.device)
+    wi = trace.upload(symmetric_index(w0, p, pr), x.device)
     v = x.reshape(n, ang, h0, ang, w0).index_select(2, hi).index_select(4, wi)
     return v.reshape(n, ang * (h0 + p + pb), ang * (w0 + p + pr)), p
 
@@ -61,14 +69,16 @@ def _whole_run(model, sais: torch.Tensor, ang: int, ang_out: int, scale: int,
     """One model call on a batch of whole scenes [N, A*h0, A*w0]: pad,
     SR, views [N, A_out, A_out, h0*s, w0*s] with the pad cropped off."""
     h0, w0 = sais.shape[1] // ang, sais.shape[2] // ang
-    x, p = _whole_pad_batch(sais, ang, whole_pad)
-    with torch.inference_mode():
+    with trace.span("eval.pad"):
+        x, p = _whole_pad_batch(sais, ang, whole_pad)
+    with trace.span("eval.forward"), torch.inference_mode():
         sr = model(x[..., None])[..., 0]
-    v = sai_to_views(sr, ang_out)
-    if p:
-        ps = p * scale
-        v = v[..., ps : ps + h0 * scale, ps : ps + w0 * scale]
-    return v
+    with trace.span("eval.crop"):
+        v = sai_to_views(sr, ang_out)
+        if p:
+            ps = p * scale
+            v = v[..., ps : ps + h0 * scale, ps : ps + w0 * scale]
+        return v
 
 
 def sr_scenes_whole(model, lr_sais: torch.Tensor, *, ang: int, ang_out: int, scale: int = 1,
@@ -79,10 +89,12 @@ def sr_scenes_whole(model, lr_sais: torch.Tensor, *, ang: int, ang_out: int, sca
     n = lr_sais.shape[0]
     mb = max(1, min(minibatch, n))
     n_pad = -(-n // mb) * mb
-    sais = torch.nn.functional.pad(lr_sais, (0, 0, 0, 0, 0, n_pad - n))
+    with trace.span("eval.pad"):
+        sais = torch.nn.functional.pad(lr_sais, (0, 0, 0, 0, 0, n_pad - n))
     outs = [_whole_run(model, sais[i : i + mb], ang, ang_out, scale, whole_pad)
             for i in range(0, n_pad, mb)]
-    return torch.cat(outs)[:n]
+    with trace.span("eval.crop"):
+        return torch.cat(outs)[:n]
 
 
 def sr_scene(model, lr_sai: torch.Tensor, *, ang: int, scale: int, patch: int, stride: int,
@@ -95,16 +107,19 @@ def sr_scene(model, lr_sai: torch.Tensor, *, ang: int, scale: int, patch: int, s
     ang_out = ang_out or ang
     if whole:
         return _whole_run(model, lr_sai[None], ang, ang_out, scale, whole_pad)[0]
-    patches = lf_divide(lr_sai, ang, patch, stride)  # [N, A*p, A*p]
-    n = patches.shape[0]
-    n_pad = -(-n // minibatch) * minibatch
-    patches = torch.nn.functional.pad(patches, (0, 0, 0, 0, 0, n_pad - n))
+    with trace.span("eval.divide"):
+        patches = lf_divide(lr_sai, ang, patch, stride)  # [N, A*p, A*p]
+        n = patches.shape[0]
+        n_pad = -(-n // minibatch) * minibatch
+        patches = torch.nn.functional.pad(patches, (0, 0, 0, 0, 0, n_pad - n))
     outs = []
-    with torch.inference_mode():
-        for i in range(0, n_pad, minibatch):
+    for i in range(0, n_pad, minibatch):
+        with trace.span("eval.forward"), torch.inference_mode():
             outs.append(model(patches[i : i + minibatch, ..., None])[..., 0])
-    sr = torch.cat(outs)[:n]
-    return _integrate(sr, ang_out, patch, scale, stride, h0, w0, integrate, integrate_sigma)
+    with trace.span("eval.integrate"):
+        sr = torch.cat(outs)[:n]
+        return _integrate(sr, ang_out, patch, scale, stride, h0, w0, integrate,
+                          integrate_sigma)
 
 
 def _check_ported(cfg: Config) -> None:
@@ -120,7 +135,8 @@ def _sr_one(model, scene, cfg: Config) -> torch.Tensor:
     """SR views [A_out, A_out, h0*s, w0*s] of one TestScene, whole-scene or
     tiled as ``cfg`` says."""
     ang = cfg.angRes
-    lr = torch.as_tensor(np.asarray(scene.lr_y, np.float32), device=_device_of(model))
+    with trace.span("eval.upload"):
+        lr = trace.upload(np.asarray(scene.lr_y, np.float32), _device_of(model))
     return sr_scene(
         model, lr, ang=ang, scale=cfg.scale_factor, patch=cfg.patch_size_for_test,
         stride=cfg.stride_for_test, minibatch=cfg.minibatch_for_test,
@@ -142,8 +158,8 @@ def _score_views(scene, sr_views, ang, ang_out, s):
     h0 = scene.lr_y.shape[0] // ang
     w0 = scene.lr_y.shape[1] // ang
     sr_sai = sr_views.movedim(2, 1).reshape(ang_out * h0 * s, ang_out * w0 * s)
-    hr = torch.as_tensor(np.asarray(scene.hr_y[: ang_out * h0 * s, : ang_out * w0 * s],
-                                    np.float32), device=sr_views.device)
+    hr = trace.upload(np.asarray(scene.hr_y[: ang_out * h0 * s, : ang_out * w0 * s], np.float32),
+                      sr_views.device)
     p, ssim_v = lf_metrics(hr, sr_sai, ang)
     return float(p), float(ssim_v)
 
@@ -157,8 +173,9 @@ def sr_groups_whole(model, scenes, cfg: Config):
         groups.setdefault(sc.lr_y.shape, []).append(sc)
     dev = _device_of(model)
     for group in groups.values():
-        batch = torch.as_tensor(np.stack([np.asarray(sc.lr_y, np.float32) for sc in group]),
-                                device=dev)
+        with trace.span("eval.upload"):
+            batch = trace.upload(np.stack([np.asarray(sc.lr_y, np.float32) for sc in group]),
+                                 dev)
         views = sr_scenes_whole(
             model, batch, ang=cfg.angRes, ang_out=cfg.angRes_out, scale=cfg.scale_factor,
             whole_pad=cfg.whole_scene_pad, minibatch=cfg.whole_scene_minibatch,

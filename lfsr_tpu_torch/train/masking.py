@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lfsr_tpu_torch import trace
+
 
 def progressive_ratio(epoch: int, start: float, end: float, warmup_epochs: int) -> float:
     t = min(1.0, epoch / max(1, warmup_epochs))
@@ -44,8 +46,9 @@ def strategy_order(noise: torch.Tensor, ang: int, strategy: str) -> torch.Tensor
         pri = (np.abs(iu - ang // 2) + np.abs(iv - ang // 2)).astype(np.float32)
     else:  # random
         pri = np.zeros(n, np.float32)
-    pri = torch.as_tensor(pri, device=noise.device) + noise
+    pri = trace.upload(pri, noise.device) + noise
     pri[center] = float("inf")
+    trace.count("h2d_copies")  # the Python scalar goes up as a copy
     return torch.argsort(pri)
 
 
@@ -58,6 +61,7 @@ def draw_view_mask(gen: torch.Generator, ang: int, k: int, strategy: str = "rand
     apply = torch.rand((), generator=gen, device=dev) < 1.0 - skip_prob
     masked = torch.zeros(ang * ang, dtype=torch.bool, device=dev)
     masked[order[:k]] = True
+    trace.count("h2d_copies")  # index_put_'s value: the Python scalar, copied up
     keep = (~masked).to(torch.float32).reshape(ang, ang)
     return torch.where(apply, keep, torch.ones_like(keep))
 

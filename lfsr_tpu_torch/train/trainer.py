@@ -11,6 +11,13 @@ under the 11-pixel SSIM window). Nothing in a step reads a value back to
 the host: a run of steps queues on the device, and ``run_epoch`` reads
 the metrics once at the end.
 
+Every stage runs in a span (``trace.span``): in ``run_epoch``'s loop
+``train.gather`` and ``train.draw``, then ``train.step`` around the step's
+``train.augment``, ``train.forward``, ``train.loss``, ``train.backward``
+(the ``autograd.grad`` call), ``train.optimizer`` and ``train.metrics``;
+the epoch's one host read is ``train.readback``. Host data goes up
+through ``trace.upload``.
+
 Random streams: one ``torch.Generator`` each for the permutation (on the
 CPU) and for augmentation, view masks, SRACM and dropout (on the device),
 seeded from ``cfg.seed``, the epoch and the stream (:func:`generators`).
@@ -43,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.data.datasets import (
@@ -128,26 +136,33 @@ class Trainer:
         """One optimizer step on lr [B, A*h, A*w] / hr [B, A*H, A*W] float32
         (on the device). Returns the batch's loss, PSNR and SSIM as device
         scalars (the loss and metrics of the parameters before the step)."""
-        ang, ao = self.cfg.angRes, self.cfg.angRes_out
-        if draws.flips is not None:
-            lr, hr = apply_augment(lr, hr, draws.flips)
-        x, y = lr[..., None], hr[..., None]
-        if draws.view_keep is not None:
-            x = masking.apply_view_mask(x, draws.view_keep, ang)
-        if draws.sracm_keep is not None:
-            x = masking.apply_sracm(x, draws.sracm_keep, ang)
-        sr = self.forward(x, dropout)
-        loss = self.loss_fn(sr, y)
-        grads = dict(zip(self.params, torch.autograd.grad(loss, list(self.params.values()))))
-        self.opt.step_(self.params, grads, self.opt_state)
-        self.step += 1
-        with torch.no_grad():
-            if y.shape[1] // ao >= 11 and y.shape[2] // ao >= 11:
-                p, s = lf_metrics(y[..., 0], sr[..., 0], ao)
-            else:  # views under the 11-tap SSIM window: per-view PSNR only
-                p = psnr(sai_to_views(y[..., 0], ao), sai_to_views(sr[..., 0], ao)).mean()
-                s = torch.zeros((), device=sr.device)
-        return {"loss": loss.detach(), "psnr": p, "ssim": s}
+        with trace.span("train.step"):
+            ang, ao = self.cfg.angRes, self.cfg.angRes_out
+            with trace.span("train.augment"):
+                if draws.flips is not None:
+                    lr, hr = apply_augment(lr, hr, draws.flips)
+                x, y = lr[..., None], hr[..., None]
+                if draws.view_keep is not None:
+                    x = masking.apply_view_mask(x, draws.view_keep, ang)
+                if draws.sracm_keep is not None:
+                    x = masking.apply_sracm(x, draws.sracm_keep, ang)
+            with trace.span("train.forward"):
+                sr = self.forward(x, dropout)
+            with trace.span("train.loss"):
+                loss = self.loss_fn(sr, y)
+            with trace.span("train.backward"):
+                grads = torch.autograd.grad(loss, list(self.params.values()))
+                grads = dict(zip(self.params, grads))
+            with trace.span("train.optimizer"):
+                self.opt.step_(self.params, grads, self.opt_state)
+                self.step += 1
+            with trace.span("train.metrics"), torch.no_grad():
+                if y.shape[1] // ao >= 11 and y.shape[2] // ao >= 11:
+                    p, s = lf_metrics(y[..., 0], sr[..., 0], ao)
+                else:  # views under the 11-tap SSIM window: per-view PSNR only
+                    p = psnr(sai_to_views(y[..., 0], ao), sai_to_views(sr[..., 0], ao)).mean()
+                    s = torch.zeros((), device=sr.device)
+                return {"loss": loss.detach(), "psnr": p, "ssim": s}
 
     def _on_device(self, data: TrainArrays) -> bool:
         """Stage the whole training set on the device once (per data
@@ -156,8 +171,8 @@ class Trainer:
         if data.lr.nbytes + data.hr.nbytes > limit:
             return False
         if self._data is None or self._data[0] is not data:
-            self._data = (data, torch.as_tensor(data.lr, device=self.device),
-                          torch.as_tensor(data.hr, device=self.device))
+            self._data = (data, trace.upload(data.lr, self.device),
+                          trace.upload(data.hr, self.device))
         return True
 
     def run_epoch(self, data: TrainArrays, epoch: int) -> dict[str, float]:
@@ -172,19 +187,21 @@ class Trainer:
         idx = batch_indices(gens["permutation"], len(data), cfg.batch_size, self.steps_per_epoch)
         if self._on_device(data):  # the batch gather runs on the device
             _, lr_all, hr_all = self._data
-            idx = idx.to(self.device)
+            idx = trace.upload(idx, self.device)
             batch = lambda i: (lr_all[idx[i]], hr_all[idx[i]])
         else:  # host gather, one batch copied per step
-            batch = lambda i: (torch.as_tensor(data.lr[idx[i].numpy()], device=self.device),
-                               torch.as_tensor(data.hr[idx[i].numpy()], device=self.device))
-        acc: dict[str, list] = {}
+            batch = lambda i: (trace.upload(data.lr[idx[i].numpy()], self.device),
+                               trace.upload(data.hr[idx[i].numpy()], self.device))
+        steps = []
         for i in range(self.steps_per_epoch):
-            lr, hr = batch(i)
-            m = self.train_step(lr, hr, self.draw(gens, lr.shape, mask_k, ratio),
-                                gens["dropout"])
-            for k, v in m.items():
-                acc.setdefault(k, []).append(v)
-        out = {k: float(torch.stack(v).mean()) for k, v in acc.items()}
+            with trace.span("train.gather"):
+                lr, hr = batch(i)
+            with trace.span("train.draw"):
+                draws = self.draw(gens, lr.shape, mask_k, ratio)
+            steps.append(self.train_step(lr, hr, draws, gens["dropout"]))
+        with trace.span("train.readback"):
+            out = {k: float(torch.stack([m[k] for m in steps]).mean())
+                   for k in (steps[0] if steps else ())}
         out["mask_ratio"] = ratio
         return out
 

@@ -26,11 +26,11 @@ at d_state 24 (V7's default): K1, K2 and K3 at every length case beside
 and at an odd one (Di 37, rank 3). K7's tensor-core kernel with x in bf16
 and in float32 (its float32-input mode) and K5's, at 1 x 17 x 23, the
 tiled, Real and 644 x 644 maps and C 16 to 128, K7's taps bit-equal to the
-twin's on its own xn, both CUDA-core kernels, each call's ``PATH_LAUNCHES``,
+twin's on its own xn, both CUDA-core kernels, each call's ``launches/K<n>/<path>``,
 and a block below the TPU's gate on K7's float32-input mode. K4's tile
 kernel in bf16 and float32 at C 16-128 on the 1 x 17 x 23, tiled, Real and
 Synth maps, its one-warp kernel at the other widths, and their
-``GATHER_PATH_LAUNCHES``; K10 at every width it takes, in both dtypes, on
+``launches/K4/<path>``; K10 at every width it takes, in both dtypes, on
 maps around its tiles; two calls of each bit-equal, and K10's output
 unchanged, bit for bit, when a crop moves its tile boundaries.
 
@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.bridge import init_params
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.registry import get_model
@@ -140,10 +141,10 @@ def _cases(g, dtype, B, H, W, C, N):
 def test_kernel_matches_plain_twin(cuda, name, dtype, shape):
     B, H, W, C, N = shape  # batch, map height and width, channels, d_state
     kern, plain, args = _cases(torch.Generator().manual_seed(0), dtype, B, H, W, C, N)[name]
-    before = kern.launches
+    before = trace.counter(f"launches/{kern.kernel}")
     got = kern(*args)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
+    assert trace.counter(f"launches/{kern.kernel}") == before + 1
     want = plain(*args)
     for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
         err, scale = _cuda.twin_error(a, b)
@@ -170,10 +171,10 @@ def test_k10_at_an_odd_size_matches_plain_twin(cuda, dtype):
     g = torch.Generator().manual_seed(8)
     args = (_rn(g, 1, 37, 53, 64, dtype=dtype), _rn(g, 64, 256, s=0.125, dtype=dtype),
             fold_out_conv(_rn(g, 3, 3, 64, 1, s=0.1, dtype=dtype), 2), _rn(g, 1, s=0.1, dtype=dtype))
-    before = head.hlfr_tail.launches
+    before = trace.counter("launches/K10")
     got = head.hlfr_tail(*args)
     torch.cuda.synchronize()
-    assert head.hlfr_tail.launches == before + 1
+    assert trace.counter("launches/K10") == before + 1
     assert got.dtype == torch.float32 and got.shape == (1, 37, 53, 4)
     err, scale = _cuda.twin_error(got, head.hlfr_tail_plain(*args))
     assert err <= TOL[dtype] * scale, err
@@ -186,13 +187,14 @@ def test_block_under_each_scan_impl_matches_its_plain_twins(cuda, impl):
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
     x = torch.randn(2, 40, 72, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
     kern = {"gated": scan.scan_gated_fused, "fused": scan.mamba_inner_fused}[impl]
-    before = (kern.launches, scan.selective_scan_proj.launches)
+    before = (trace.counter(f"launches/{kern.kernel}"), trace.counter("launches/K1"))
     with torch.inference_mode():
         got = model.block_0(x)
         torch.cuda.synchronize()
         with _cuda.force_plain():
             want = model.block_0(x)
-    assert (kern.launches, scan.selective_scan_proj.launches) == (before[0] + 1, before[1])
+    assert (trace.counter(f"launches/{kern.kernel}"), trace.counter("launches/K1")) == (
+        before[0] + 1, before[1])
     err, scale = _cuda.twin_error(got, want)
     assert err <= TOL[torch.bfloat16] * scale, err
 
@@ -213,7 +215,7 @@ def test_function_gradients_match_plain_twin(cuda, name):
     gradient's scale."""
     kern, plain, args = _cases(torch.Generator().manual_seed(2), torch.float32, 2, 40, 72, 64, 16)[name]
     scan_kernels = (scan.selective_scan_proj_states, scan.selective_scan_proj_bwd)
-    before = [k.launches for k in scan_kernels]
+    before = [trace.counter(f"launches/{k.kernel}") for k in scan_kernels]
     outs = []
     for run in (kern, plain):
         leaves = [a.detach().clone().requires_grad_(a.is_floating_point())
@@ -224,7 +226,8 @@ def test_function_gradients_match_plain_twin(cuda, name):
         wrt = [a for a in leaves if isinstance(a, torch.Tensor) and a.requires_grad]
         outs.append(torch.autograd.grad(y, wrt, cot))
     if name == "K1":  # forward K2, backward K3, once each
-        assert [k.launches for k in scan_kernels] == [b + 1 for b in before]
+        got = [trace.counter(f"launches/{k.kernel}") for k in scan_kernels]
+        assert got == [b + 1 for b in before]
     for g_kern, g_plain in zip(*outs):
         err, scale = _cuda.twin_error(g_kern, g_plain)
         assert err <= 1e-4 * scale, err
@@ -237,14 +240,14 @@ def test_block_at_the_k7_gate_matches_its_plain_twins(cuda):
     side = int(np.ceil(np.sqrt(LN_MSL_MIN_PIXELS)))  # 320: square, 8-aligned
     x = torch.randn(1, side, side, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
     assert block.ln_msl_supported(x)
-    before = block.ln_msl.launches
+    before = trace.counter("launches/K7")
     with torch.inference_mode():
         got = model.block_0(x)
         torch.cuda.synchronize()
-        assert block.ln_msl.launches == before + 1
+        assert trace.counter("launches/K7") == before + 1
         with _cuda.force_plain():
             want = model.block_0(x)
-    assert block.ln_msl.launches == before + 1
+    assert trace.counter("launches/K7") == before + 1
     err, scale = _cuda.twin_error(got, want)
     assert err <= TOL[torch.bfloat16] * scale, err
 
@@ -255,14 +258,39 @@ def test_small_flagship_on_cuda_matches_cpu(cuda, dtype, tol):
     sd = init_params(cfg, torch.Generator().manual_seed(0))
     x = torch.rand(2, 40, 40, 1, generator=torch.Generator().manual_seed(1))
     outs = []
-    before = head.hlfr_tail.launches
+    before = trace.counter("launches/K10")
     for dev in ("cpu", cuda):
         model = get_model(cfg, device=dev)
         model.load_state_dict(sd)
         with torch.inference_mode():
             outs.append(model(x.to(dev)).cpu())
-    assert head.hlfr_tail.launches == before + 1  # the tail, on CUDA only
+    assert trace.counter("launches/K10") == before + 1  # the tail, on CUDA only
     assert (outs[1] - outs[0]).abs().max().item() <= tol
+
+
+def test_spans_time_the_small_flagship_on_the_stream(cuda):
+    """Under the profiler a forward on the card records each kernel
+    wrapper's span with event-timed device milliseconds, and each block's
+    self time is the block less the kernel spans in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config(compute_dtype="bfloat16", model_kwargs=SMALL)
+    model = get_model(cfg, device=cuda)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    x = torch.rand(2, 40, 40, 1, device=cuda)
+    with torch.inference_mode():
+        model(x)  # warm-up: the library's build and load
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            model(x)
+            torch.cuda.synchronize()
+    s = trace.summary()["spans"]
+    assert {k: s[k]["calls"] for k in ("K1", "K4", "K5", "K7", "K6", "K10", "model.block")} == {
+        "K1": 3, "K4": 3, "K5": 3, "K7": 3, "K6": 1, "K10": 1, "model.block": 3}
+    assert all(v["device_ms"] > 0 for v in s.values())
+    blk = s["model.block"]
+    inner = s["K7"]["device_ms"] + s["model.block.ssm"]["device_ms"]
+    assert blk["device_self_ms"] == pytest.approx(blk["device_ms"] - inner, rel=1e-6, abs=1e-6)
 
 
 def _k8_case(g, dtype, B, L, D, heads):
@@ -283,10 +311,10 @@ def _k8_case(g, dtype, B, L, D, heads):
                          ids=["hd32", "hd16", "epit", "d256", "ragged"])
 def test_k8_matches_plain_twin(cuda, dtype, shape):
     args = _k8_case(torch.Generator().manual_seed(4), dtype, *shape)
-    before = masked_attention.masked_mha_fused.launches
+    before = trace.counter("launches/K8")
     got = masked_attention.masked_mha_fused(*args)
     torch.cuda.synchronize()
-    assert masked_attention.masked_mha_fused.launches == before + 1
+    assert trace.counter("launches/K8") == before + 1
     assert got.dtype == dtype and got.shape == args[0].shape
     err, scale = _cuda.twin_error(got, masked_attention.masked_mha_plain(*args))
     assert err <= TOL[dtype] * scale, err
@@ -312,13 +340,13 @@ def test_one_block_epit_on_cuda_matches_cpu(cuda, dtype, tol):
     sd = init_params(cfg, torch.Generator().manual_seed(0))
     x = torch.rand(2, 40, 40, 1, generator=torch.Generator().manual_seed(1))
     outs = []
-    before = masked_attention.masked_mha_fused.launches
+    before = trace.counter("launches/K8")
     for dev in ("cpu", cuda):
         model = get_model(cfg, device=dev)
         model.load_state_dict(sd)
         with torch.inference_mode():
             outs.append(model(x.to(dev)).cpu())
-    assert masked_attention.masked_mha_fused.launches == before + 2  # both EPI passes, on CUDA
+    assert trace.counter("launches/K8") == before + 2  # both EPI passes, on CUDA
     err, scale = _cuda.twin_error(outs[1], outs[0])
     assert err <= tol * scale, err
 
@@ -347,11 +375,11 @@ def test_k1_k2_chunked_match_twins_and_each_other(cuda, L, B, N, dtype):
     scale), and K2's y equal to K1's bit for bit."""
     L = _scan_length(B, L)
     args = _scan_operands(torch.Generator().manual_seed(9), dtype, B, L, N)
-    before = (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches)
+    before = (trace.counter("launches/K1"), trace.counter("launches/K2"))
     y1 = scan.selective_scan_proj(*args)
     y2, states = scan.selective_scan_proj_states(*args)
     torch.cuda.synchronize()
-    assert (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches) == (
+    assert (trace.counter("launches/K1"), trace.counter("launches/K2")) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(y1, y2)
     want_y, want_states = scan.selective_scan_proj_states_plain(*args)
@@ -390,10 +418,10 @@ def _k3_operands(g, dtype, B, L, N, Di=80, R=4):
 
 
 def _check_k3(args):
-    before = scan.selective_scan_proj_bwd.launches
+    before = trace.counter("launches/K3")
     got = scan.selective_scan_proj_bwd(*args)
     torch.cuda.synchronize()
-    assert scan.selective_scan_proj_bwd.launches == before + 1
+    assert trace.counter("launches/K3") == before + 1
     for a, b in zip(got, scan.selective_scan_proj_bwd_plain(*args)):
         assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
         err, scale = _cuda.twin_error(a, b)
@@ -459,10 +487,10 @@ def test_k8_tensor_core_kernel_matches_plain_twin(cuda, L, hd, kind):
     q, k, v = (_rn(g, 6, L, 128, dtype=torch.bfloat16) for _ in range(3))
     mask, heads = _k8_mask(g, L, kind), 128 // hd
     assert masked_attention.kernel_path(torch.bfloat16, hd) == "mma"
-    before = dict(masked_attention.PATH_LAUNCHES)
+    before = trace.counts("launches/K8/")
     got = masked_attention.masked_mha_fused(q, k, v, mask, heads)
     torch.cuda.synchronize()
-    assert masked_attention.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    assert trace.counts("launches/K8/") == {"mma": before["mma"] + 1, "fma": before["fma"]}
     want = masked_attention.masked_mha_plain(q, k, v, mask, heads)
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
@@ -478,10 +506,10 @@ def test_k8_float32_and_head_dim_8_take_the_cuda_core_kernel(cuda, dtype, hd):
     q, k, v = (_rn(g, 4, 40, 128, dtype=dtype) for _ in range(3))
     mask = _k8_mask(g, 40, "band")
     assert masked_attention.kernel_path(dtype, hd) == "fma"
-    before = dict(masked_attention.PATH_LAUNCHES)
+    before = trace.counts("launches/K8/")
     got = masked_attention.masked_mha_fused(q, k, v, mask, 128 // hd)
     torch.cuda.synchronize()
-    assert masked_attention.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    assert trace.counts("launches/K8/") == {"mma": before["mma"], "fma": before["fma"] + 1}
     err, scale = _cuda.twin_error(got, masked_attention.masked_mha_plain(q, k, v, mask, 128 // hd))
     assert err <= TOL[dtype] * scale, err
 
@@ -508,10 +536,10 @@ def test_k6_takes_its_kernel_by_shape_and_holds_its_twin(cuda, dtype, shape, pat
     B, H, W, C, heads = shape
     args = _k6_args(torch.Generator().manual_seed(14), dtype, B, H, W, C, heads, attn_scale)
     assert window_attention.kernel_path(C, heads, 8) == path
-    before = dict(window_attention.PATH_LAUNCHES)
+    before = trace.counts("launches/K6/")
     got = window_attention.window_mha_fused(*args, 8, heads, 1e-6)
     torch.cuda.synchronize()
-    assert window_attention.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}
+    assert trace.counts("launches/K6/") == {k: v + (k == path) for k, v in before.items()}
     want = window_attention.window_mha_plain(*args, 8, heads, 1e-6)
     assert got.dtype == dtype and got.shape == want.shape
     err, scale = _cuda.twin_error(got, want)
@@ -561,10 +589,10 @@ def test_scans_at_d_state_24_match_their_twins(cuda, name, dtype, Di, R, L):
     """Each output to its own scale (float32 outputs of K2 and K3 to 1e-4);
     K2's y equal to K1's bit for bit."""
     kern, plain, args = _n24_cases(torch.Generator().manual_seed(16), dtype, 2, L, Di, R)[name]
-    before = kern.launches
+    before = trace.counter(f"launches/{kern.kernel}")
     got = kern(*args)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
+    assert trace.counter(f"launches/{kern.kernel}") == before + 1
     if name == "K2":
         assert torch.equal(got[0], scan.selective_scan_proj(*args))
     want = plain(*args)
@@ -613,10 +641,10 @@ def test_k7_mma_holds_its_twin(cuda, x_dtype, shape, C):
     non-8-aligned maps and C 16 to 128 (c4 = C / 4: 4, 8, 16, 32)."""
     g = torch.Generator(device="cuda").manual_seed(20 + C)
     args = _k7_args(g, x_dtype, torch.bfloat16, *shape, C)
-    before = dict(block.PATH_LAUNCHES)
+    before = trace.counts("launches/K7/")
     got = block.ln_msl(*args)
     torch.cuda.synchronize()
-    assert block.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    assert trace.counts("launches/K7/") == {"mma": before["mma"] + 1, "fma": before["fma"]}
     want = block.ln_msl_plain(*args)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
@@ -651,10 +679,10 @@ def test_k7_taps_equal_the_twins_bit_for_bit(cuda, x_dtype, shape, C):
 def test_k7_f32_takes_the_cuda_core_kernel(cuda, shape):
     g = torch.Generator(device="cuda").manual_seed(8)
     args = _k7_args(g, torch.float32, torch.float32, *shape, 64)
-    before = dict(block.PATH_LAUNCHES)
+    before = trace.counts("launches/K7/")
     got = block.ln_msl(*args)
     torch.cuda.synchronize()
-    assert block.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    assert trace.counts("launches/K7/") == {"mma": before["mma"], "fma": before["fma"] + 1}
     for a, b in zip(got, block.ln_msl_plain(*args)):
         assert a.dtype == torch.float32
         err, scale = _cuda.twin_error(a, b)
@@ -681,10 +709,10 @@ def test_k5_mma_holds_its_twin(cuda, shape, C):
     masked; y stays float32 there, the twin rounds it (3e-2 of scale)."""
     args = _k5_args(torch.Generator(device="cuda").manual_seed(30 + C), torch.bfloat16,
                     *shape, C)
-    before = dict(cross_scan.PATH_LAUNCHES)
+    before = trace.counts("launches/K5/")
     got = cross_scan.cross_scan_scatter(*args)
     torch.cuda.synchronize()
-    assert cross_scan.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    assert trace.counts("launches/K5/") == {"mma": before["mma"] + 1, "fma": before["fma"]}
     err, scale = _cuda.twin_error(got, cross_scan.cross_scan_scatter_plain(*args))
     assert err <= TOL[torch.bfloat16] * scale, err
 
@@ -694,10 +722,10 @@ def test_k5_mma_holds_its_twin(cuda, shape, C):
 @pytest.mark.parametrize("shape", [(1, 17, 23), (2, 40, 72)], ids=["ragged", "non_square"])
 def test_k5_cuda_core_kernel_takes_the_rest(cuda, dtype, C, shape):
     args = _k5_args(torch.Generator(device="cuda").manual_seed(31), dtype, *shape, C)
-    before = dict(cross_scan.PATH_LAUNCHES)
+    before = trace.counts("launches/K5/")
     got = cross_scan.cross_scan_scatter(*args)
     torch.cuda.synchronize()
-    assert cross_scan.PATH_LAUNCHES == {"mma": before["mma"], "fma": before["fma"] + 1}
+    assert trace.counts("launches/K5/") == {"mma": before["mma"], "fma": before["fma"] + 1}
     err, scale = _cuda.twin_error(got, cross_scan.cross_scan_scatter_plain(*args))
     assert err <= TOL[dtype] * scale, err
 
@@ -711,13 +739,13 @@ def test_block_below_the_k7_gate_takes_k7_on_float32_x(cuda):
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
     x = torch.randn(2, 40, 72, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
     assert not block.ln_msl_supported(x)
-    before = dict(block.PATH_LAUNCHES)
+    before = trace.counts("launches/K7/")
     with torch.inference_mode():
         got = model.block_0(x)
         torch.cuda.synchronize()
         with _cuda.force_plain():
             want = model.block_0(x)
-    assert block.PATH_LAUNCHES == {"mma": before["mma"] + 1, "fma": before["fma"]}
+    assert trace.counts("launches/K7/") == {"mma": before["mma"] + 1, "fma": before["fma"]}
     err, scale = _cuda.twin_error(got, want)
     assert err <= TOL[torch.bfloat16] * scale, err
 
@@ -745,10 +773,10 @@ def test_k4_tile_holds_its_twin(cuda, shape, dtype, C):
     most), float32 within 1e-5."""
     args = _k4_args(torch.Generator(device="cuda").manual_seed(40 + C), dtype, *shape, C)
     assert cross_scan.gather_path(dtype, C) == "tile"
-    before = dict(cross_scan.GATHER_PATH_LAUNCHES)
+    before = trace.counts("launches/K4/")
     got = cross_scan.cross_scan_gather(*args)
     torch.cuda.synchronize()
-    assert cross_scan.GATHER_PATH_LAUNCHES == {"tile": before["tile"] + 1, "warp": before["warp"]}
+    assert trace.counts("launches/K4/") == {"tile": before["tile"] + 1, "warp": before["warp"]}
     want = cross_scan.cross_scan_gather_plain(*args)
     assert got.dtype == dtype and got.shape == want.shape
     err, scale = _cuda.twin_error(got, want)
@@ -762,10 +790,10 @@ def test_k4_warp_kernel_takes_the_rest(cuda, dtype, C):
     """A quarter that is not a multiple of 8 bytes takes the one-warp kernel."""
     args = _k4_args(torch.Generator(device="cuda").manual_seed(41), dtype, 2, 40, 72, C)
     assert cross_scan.gather_path(dtype, C) == "warp"
-    before = dict(cross_scan.GATHER_PATH_LAUNCHES)
+    before = trace.counts("launches/K4/")
     got = cross_scan.cross_scan_gather(*args)
     torch.cuda.synchronize()
-    assert cross_scan.GATHER_PATH_LAUNCHES == {"tile": before["tile"], "warp": before["warp"] + 1}
+    assert trace.counts("launches/K4/") == {"tile": before["tile"], "warp": before["warp"] + 1}
     err, scale = _cuda.twin_error(got, cross_scan.cross_scan_gather_plain(*args))
     assert err <= TOL[dtype] * scale, err
 
@@ -791,10 +819,10 @@ def test_k10_holds_its_twin_at_each_width(cuda, shape, dtype, C):
     the wrapper takes, Cz = 4 C, on maps that are a tile, one pixel more
     than a tile each way, neither, or a single pixel (all halo)."""
     args = _k10_args(torch.Generator(device="cuda").manual_seed(50 + C), dtype, *shape, C)
-    before = head.hlfr_tail.launches
+    before = trace.counter("launches/K10")
     got = head.hlfr_tail(*args)
     torch.cuda.synchronize()
-    assert head.hlfr_tail.launches == before + 1
+    assert trace.counter("launches/K10") == before + 1
     assert got.dtype == torch.float32 and got.shape == (*shape, 4)
     err, scale = _cuda.twin_error(got, head.hlfr_tail_plain(*args))
     assert err <= TOL[dtype] * scale, err

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.models.lfmambax import fold_out_conv
 from lfsr_tpu_torch.ops import _cuda, head
 
@@ -194,10 +195,10 @@ def test_k10_launch_by_dtype_and_width(launches, dtype, path, C):
     B, H, W = 2, 37, 53
     args = (torch.randn(B, H, W, C, generator=g).to(dtype), torch.randn(C, 4 * C, generator=g),
             fold_out_conv(torch.randn(3, 3, C, 1, generator=g), 2), torch.randn(1, generator=g))
-    n = head.hlfr_tail.launches
+    n = trace.counter("launches/K10")
     out = head.hlfr_tail(*args)
     ((name, a),) = launches
-    assert head.kernel_path(dtype) == path and head.hlfr_tail.launches == n + 1
+    assert head.kernel_path(dtype) == path and trace.counter("launches/K10") == n + 1
     assert name == "lfsr_hlfr_tail" and out.shape == (B, H, W, 4)
     assert a[5:12] == (B, H, W, C, 4 * C, *head.TAIL_TILES[path])
     assert a[-2] == _cuda.DTYPE_CODES[dtype]

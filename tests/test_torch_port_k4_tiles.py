@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, cross_scan
 
 MAPS = [(17, 23), (160, 160), (640, 880), (720, 720)]
@@ -268,13 +269,13 @@ def launches(monkeypatch):
 def test_k4_launch_by_dtype_and_width(launches, dtype, C, B, H, W, path, T):
     g = torch.Generator().manual_seed(5)
     x = torch.randn(B, H, W, C, generator=g).to(dtype)
-    before = dict(cross_scan.GATHER_PATH_LAUNCHES)
-    n = cross_scan.cross_scan_gather.launches
+    before = trace.counts("launches/K4/")
+    n = trace.counter("launches/K4")
     cross_scan.cross_scan_gather(x, torch.ones(C), torch.zeros(C))
     ((name, a),) = launches
     assert cross_scan.gather_path(dtype, C) == path
-    assert cross_scan.GATHER_PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}
-    assert cross_scan.cross_scan_gather.launches == n + 1
+    assert trace.counts("launches/K4/") == {k: v + (k == path) for k, v in before.items()}
+    assert trace.counter("launches/K4") == n + 1
     if path == "tile":
         assert name == "lfsr_cross_scan_gather_tile"
         assert a[4:9] == (B, H, W, C, T) and a[-2] == _cuda.DTYPE_CODES[dtype]

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, cross_scan
 
 MAPS = [(17, 23), (160, 160), (640, 880), (720, 720)]
@@ -130,11 +131,11 @@ def test_k5_launch_by_dtype_and_width(launches, dtype, C, path):
     args = (torch.randn(B, H * W, C, generator=g).to(dtype),
             torch.randn(B, H, W, C, generator=g).to(dtype),
             torch.randn(C, C, generator=g).to(dtype), torch.full((1,), 0.15))
-    before = dict(cross_scan.PATH_LAUNCHES)
+    before = trace.counts("launches/K5/")
     cross_scan.cross_scan_scatter(*args)
     ((name, a),) = launches
     assert cross_scan.kernel_path(dtype, C) == path
-    assert cross_scan.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}
+    assert trace.counts("launches/K5/") == {k: v + (k == path) for k, v in before.items()}
     if path == "mma":
         assert name == "lfsr_cross_scan_scatter_mma"
         assert a[5:11] == (B, H, W, C, *cross_scan.scatter_tile(C))

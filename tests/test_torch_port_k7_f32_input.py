@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import flax.linen as nn
 
 from lfsr_tpu.models import lfmambax as jlfm
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch import bridge
 from lfsr_tpu_torch.models import lfmambax as tlfm
 from lfsr_tpu_torch.ops import _cuda, block
@@ -207,14 +208,14 @@ def test_k7_launch_by_mode(launches, x_dtype, w_dtype, path):
     """The outputs take the weights' dtype; the entry gets x's dtype code and
     the weights' (the mode); bfloat16 weights take "mma", float32 "fma"."""
     args = _operands(x_dtype, w_dtype)
-    before = dict(block.PATH_LAUNCHES)
+    before = trace.counts("launches/K7/")
     xn, local = block.ln_msl(*args)
     ((name, a),) = launches
     assert name == "lfsr_ln_msl" and xn.dtype == local.dtype == w_dtype
     assert a[8:13] == (1, 8, 8, 64, 16)
     assert a[15:17] == (_cuda.DTYPE_CODES[x_dtype], _cuda.DTYPE_CODES[w_dtype])
     assert block.kernel_path(w_dtype) == path
-    assert block.PATH_LAUNCHES == {k: v + (k == path) for k, v in before.items()}
+    assert trace.counts("launches/K7/") == {k: v + (k == path) for k, v in before.items()}
 
 
 @pytest.mark.parametrize("C,c4,takes", [(64, 16, True), (16, 4, True), (128, 32, True),

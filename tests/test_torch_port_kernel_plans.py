@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, masked_attention as ma, scan
 
 
@@ -56,14 +57,14 @@ def test_k1_and_k2_launch_the_same_passes_and_chunks(launches, B, L):
     spacing, dtype, stream)."""
     args = _scan_args(B, L)
     tc = scan.scan_chunk_len(B, L)
-    before = (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches)
+    before = (trace.counter("launches/K1"), trace.counter("launches/K2"))
     with torch.no_grad():
         scan.selective_scan_proj(*args)
         k1 = list(launches)
         launches.clear()
         scan.selective_scan_proj_states(*args)
         k2 = list(launches)
-    assert (scan.selective_scan_proj.launches, scan.selective_scan_proj_states.launches) == (
+    assert (trace.counter("launches/K1"), trace.counter("launches/K2")) == (
         before[0] + 1, before[1] + 1)
     names = ["lfsr_chunk_scan_outputs"]
     if L > tc:
@@ -99,9 +100,9 @@ def test_k3_plans_summaries_carry_adjoint_and_sum(launches, monkeypatch, B, L):
         return t
 
     monkeypatch.setattr(torch, "empty", recorded_empty)
-    before = scan.selective_scan_proj_bwd.launches
+    before = trace.counter("launches/K3")
     du, ddt, dB, dC, dA = scan.selective_scan_proj_bwd(u, dbc, dy, Wdt, bdt, A, states)
-    assert scan.selective_scan_proj_bwd.launches == before + 1
+    assert trace.counter("launches/K3") == before + 1
     outs = [(B, L, Di), (B, L, Di), (B, L, N), (B, L, N), (B, N, Di)]
     assert [tuple(t.shape) for t in (du, ddt, dB, dC, dA)] == outs
     calls = dict(launches)
@@ -130,17 +131,17 @@ def test_k3_plans_summaries_carry_adjoint_and_sum(launches, monkeypatch, B, L):
 def test_k8_path_by_dtype_and_head_dim(launches, dtype, hd, path):
     """bfloat16 with hd 16/32/64: the tensor-core entry with the mask as
     given (row-major); float32 or hd 8: the CUDA-core entry with the mask
-    transposed. ``PATH_LAUNCHES`` counts the one taken."""
+    transposed. ``launches/K8/<path>`` counts the one taken."""
     assert ma.kernel_path(dtype, hd) == path
     g = torch.Generator().manual_seed(1)
     L, D = 40, 128
     q, k, v = (torch.randn(2, L, D, generator=g).to(dtype) for _ in range(3))
     mask = torch.randn(L, L, generator=g)
-    before = dict(ma.PATH_LAUNCHES)
+    before = trace.counts("launches/K8/")
     ma.masked_mha_fused(q, k, v, mask, D // hd)
     ((name, args),) = launches
-    assert ma.PATH_LAUNCHES[path] == before[path] + 1
-    assert sum(ma.PATH_LAUNCHES.values()) == sum(before.values()) + 1
+    assert trace.counts("launches/K8/")[path] == before[path] + 1
+    assert sum(trace.counts("launches/K8/").values()) == sum(before.values()) + 1
     assert name == {"mma": "lfsr_masked_mha_mma", "fma": "lfsr_masked_mha"}[path]
     assert args[5:9] == (2, L, D, D // hd)
     assert args[9] == pytest.approx(hd**-0.5)

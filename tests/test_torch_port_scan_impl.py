@@ -35,6 +35,7 @@ from lfsr_tpu.models.ssm import Mamba as JMamba
 from lfsr_tpu.ops import pallas_layout as jpl
 from lfsr_tpu.ops import pallas_scan as jps
 from lfsr_tpu.train import evaluate as jeval
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.bridge import _MAMBA, state_dict_from_flax
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.data.datasets import TestScene
@@ -138,11 +139,11 @@ def test_k9c_twin_matches_reference_and_pallas_kernel():
 def test_cpu_wrappers_take_their_twins_without_counting():
     gargs = [torch.from_numpy(a) for a in _gated_inputs(3, L=100)]
     iargs = [torch.from_numpy(a) for a in _inner_inputs(4, L=100)]
-    before = (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches)
+    before = (trace.counter("launches/K9b"), trace.counter("launches/K9c"))
     for fused, plain, args in ((scan.scan_gated_fused, scan.scan_gated_plain, (*gargs, True)),
                                (scan.mamba_inner_fused, scan.mamba_inner_plain, iargs)):
         np.testing.assert_array_equal(fused(*args).numpy(), plain(*args).numpy())
-    assert (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches) == before
+    assert (trace.counter("launches/K9b"), trace.counter("launches/K9c")) == before
 
 
 # (d) PlainVJP gradients vs jax.grad ----------------------------------------
@@ -235,12 +236,12 @@ def test_mamba_under_assoc_matches_jax(dtype):
                 scan_impl="assoc")
     want = np.asarray(jm.apply({"params": {k: jnp.asarray(v) for k, v in params.items()}},
                                jnp.asarray(x)), np.float32)
-    launches = (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches,
-                scan.selective_scan_proj.launches)
+    launches = (trace.counter("launches/K9b"), trace.counter("launches/K9c"),
+                trace.counter("launches/K1"))
     with torch.inference_mode():
         got = tm(torch.from_numpy(x))
-    assert (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches,
-            scan.selective_scan_proj.launches) == launches
+    assert (trace.counter("launches/K9b"), trace.counter("launches/K9c"),
+            trace.counter("launches/K1")) == launches
     assert got.dtype == getattr(torch, dtype) and got.shape == (2, 256, 16)
     _assert_rel(got.float().numpy(), want, 1e-5 if dtype == "float32" else 2e-2)
 
@@ -272,10 +273,10 @@ def test_small_flagship_matches_jax(small_params, layout_interpret, impl, dtype)
     cfg = Config(compute_dtype=dtype, model_kwargs=kw)
     model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, cfg))
-    launches = (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches)
+    launches = (trace.counter("launches/K9b"), trace.counter("launches/K9c"))
     with torch.inference_mode():
         got = model(torch.from_numpy(x))
-    assert (scan.scan_gated_fused.launches, scan.mamba_inner_fused.launches) == launches
+    assert (trace.counter("launches/K9b"), trace.counter("launches/K9c")) == launches
     assert got.dtype == torch.float32 and got.shape == (2, 160, 160, 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=F32_TOL if dtype == "float32" else BF16_TOL)

@@ -29,6 +29,7 @@ from lfsr_tpu.config import Config
 from lfsr_tpu.models.registry import get_loss as jget_loss
 from lfsr_tpu.models.registry import get_model as jget_model
 from lfsr_tpu.train.trainer import make_optimizer
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.ops import scan
 from lfsr_tpu_torch.train.trainer import Draws, Trainer
@@ -126,11 +127,11 @@ def test_two_steps_match_jax(jax_run, chunked_calls, impl):
     trainer = Trainer(cfg, SPE, state_dict_from_flax({"params": params}, cfg), device="cpu")
     trainer.model.eval()
     kern = {"gated": scan.scan_gated_fused, "fused": scan.mamba_inner_fused}[impl]
-    before, calls = kern.launches, len(chunked_calls)
+    before, calls = trace.counter(f"launches/{kern.kernel}"), len(chunked_calls)
     for i, ((lr, hr), (jloss, _)) in enumerate(zip(_batches(), steps)):
         m = trainer.train_step(torch.from_numpy(lr), torch.from_numpy(hr), Draws())
         np.testing.assert_allclose(m["loss"].item(), jloss, rtol=1e-5, err_msg=f"step {i}")
-    assert kern.launches == before  # CPU tensors: the twins, no launch
+    assert trace.counter(f"launches/{kern.kernel}") == before  # CPU tensors: the twins, no launch
     # 3 blocks, forward and backward of each step, all at L = 6400
     assert len(chunked_calls) - calls >= 2 * 3 * 2
     assert all(shape[1] == 6400 for shape in chunked_calls[calls:])

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from lfsr_tpu.ops import pallas_attention as jpa
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, window_attention as wa
 
 f32 = np.float32
@@ -174,7 +175,7 @@ def test_each_call_reaches_its_kernel_and_is_counted(launches, dtype, C, heads, 
     x = torch.randn(2, 16, 24, C, generator=g).to(dtype)
     args = (torch.randn(C, 3 * C, generator=g), torch.randn(C, C, generator=g), torch.ones(C),
             torch.zeros(C), torch.randn(T, heads * T, generator=g), torch.full((1,), 0.25))
-    before, calls = dict(wa.PATH_LAUNCHES), wa.window_mha_fused.launches
+    before, calls = trace.counts("launches/K6/"), trace.counter("launches/K6")
     with torch.no_grad():
         y = wa.window_mha_fused(x, *args, WS, heads, 1e-6)
     ((name, a),) = launches
@@ -186,9 +187,9 @@ def test_each_call_reaches_its_kernel_and_is_counted(launches, dtype, C, heads, 
         assert tail[3:6] == wa.mma_plan(2, 16, 24, C, x.element_size(), 132)
         tail = tail[3:]
     assert tail[3] == _cuda.DTYPE_CODES[dtype]
-    assert wa.PATH_LAUNCHES[path] == before[path] + 1
-    assert sum(wa.PATH_LAUNCHES.values()) == sum(before.values()) + 1
-    assert wa.window_mha_fused.launches == calls + 1
+    assert trace.counts("launches/K6/")[path] == before[path] + 1
+    assert sum(trace.counts("launches/K6/").values()) == sum(before.values()) + 1
+    assert trace.counter("launches/K6") == calls + 1
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])

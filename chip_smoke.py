@@ -30,7 +30,12 @@ Phases (any failure exits non-zero):
    [4, 563200, 80]; K10 (the HLFR tail: expansion matmul + lrelu + folded
    out-conv, on the last stage's map at twice the LR side) at the tiled
    [2, 320, 320, 64], train [8, 320, 320, 64], Synth [4, 1440, 1440, 64]
-   and Real [4, 1280, 1760, 64] shapes; K9a (the op-level scan
+   and Real [4, 1280, 1760, 64] shapes; K11 (the depthwise convs outside
+   the blocks) at the tiled, Synth and Real LR maps at each of the
+   flagship's sites (3x3 at dilation 1 and 3, LSFL's 1x3 / 3x1 dilation-5
+   "once" convs) and at twice each map's side (HLFR's Conv_12), "tap" held
+   bit for bit to the chain and "once" within an ulp of ``F.conv2d``
+   (cuDNN, timed beside it as the library yardstick); K9a (the op-level scan
    ``selective_scan_fused``, delta given after or before softplus) at the
    tiled, train and Synth scan shapes; K8 (EPIT's
    banded-mask attention) at EPIT's tiled eval (q/k/v [320, 160, 128]) and
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero):
    pre-training with 2 masked views in epoch 0, dropout, composite_v8,
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
    untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
-   step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0; every K5 and K7 launch on
+   step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0, K11 13, its gradient the
+   plain chain's; every K5 and K7 launch on
    its tensor-core kernel, every K4 launch of every phase, the float32
    gradient checks too, on its tile kernel), finite loss/PSNR/SSIM,
    ms/step, steps/s, peak memory. A batch holding a NaN must leave the
@@ -74,7 +80,7 @@ Phases (any failure exits non-zero):
 5. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
    (432x624 HR), one dispatch each: launch counts per dispatch (K7 12 on
-   both, K10 once), finite SR and metrics, ms/scene and peak
+   both, K10 once, K11 13), finite SR and metrics, ms/scene and peak
    memory; one scene per geometry against the plain twins. Then the same
    8 scenes under ``Config(model_kwargs={'scan_impl': impl})`` for impl in
    ('gated', 'fused'), with the same seeded parameters: K9b or K9c 12 per
@@ -161,17 +167,18 @@ GRAD_BOUND = 1e-4
 GRAD_BATCH = 4
 
 # launches per flagship forward (12 blocks, window attention after 2 phases,
-# the HLFR tail once)
+# the HLFR tail once, the 13 depthwise convs outside the blocks: 11 "tap", 2
+# "once")
 PER_FORWARD = {"K1 selective_scan_proj": 12, "K4 cross_scan_gather": 12,
                "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
-               "K10 hlfr_tail": 1}
-# launches per train step: K2 in place of K1 forward, K3 in backward (K4-K7
-# and K10 have no backward kernel: their gradient is the plain twin's, as on
-# the TPU)
+               "K10 hlfr_tail": 1, "K11 depthwise_conv": 13}
+# launches per train step: K2 in place of K1 forward, K3 in backward (K4-K7,
+# K10 and K11 have no backward kernel: their gradient is the plain twin's, as
+# on the TPU)
 PER_STEP = {"K1 selective_scan_proj": 0, "K2 selective_scan_proj_states": 12,
             "K3 selective_scan_proj_bwd": 12, "K4 cross_scan_gather": 12,
             "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
-            "K10 hlfr_tail": 1}
+            "K10 hlfr_tail": 1, "K11 depthwise_conv": 13}
 TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
@@ -190,7 +197,7 @@ N24_DIMS = {"Di": 90, "N": 24, "R": 5}
 
 # the entry-point phase: the flagship's kernels, and the gate's numbers at
 # the official input (the JAX package's CPU count, tests/test_torch_port_efficiency.py)
-ENTRY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10")
+ENTRY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11")
 GATE_PARAMS, GATE_MACS = 693_998, 18_118_185_344
 # the gate's bench: 5 warm-up calls and 2 x 50 timed ones (tools/efficiency.latency_bench)
 GATE_FORWARDS = 5 + 2 * 50
@@ -203,7 +210,8 @@ BF16_TENSOR_FLOPS = 989e12
 TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 # what each kernel path is, in the log
-PATH_NAMES = {"mma": "tensor-core", "fma": "CUDA-core", "tile": "tile", "warp": "one-warp"}
+PATH_NAMES = {"mma": "tensor-core", "fma": "CUDA-core", "tile": "tile", "warp": "one-warp",
+              "tap": "tap-rounding", "once": "once-rounding"}
 
 
 def log(msg: str) -> None:
@@ -311,18 +319,39 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
                 rn(C, s=0.1), rn(c4, C, s=0.125, dt=dtype), rn(C - c4, C, s=0.125, dt=dtype),
                 rn(3, 3, C - c4, s=0.3, dt=dtype))
 
+    def k11_cases(where, B, H, W):
+        """K11 at the flagship's depthwise sites on an LR map [B, H, W, C]
+        (each: x, weight, dilation, rounding, bias): IFE / fusion / HLFR /
+        LSFL 3x3 (d 1), SpatialAttention's d 3, LSFL's two EPI convs
+        ("once", d 5); on HLFR's last stage at twice the side, 3x3
+        (Conv_12)."""
+        x = rn(B, H, W, C, dt=dtype)
+        w33, ang = rn(C, 1, 3, 3, s=0.3), 5
+        yield f"{where}/d1", (x, w33, 1, "tap", None)
+        yield f"{where}/d3", (x, w33, 3, "tap", None)
+        yield f"{where}/epi-h", (x, rn(C, 1, 1, 3, s=0.4), (1, ang), "once", None)
+        yield f"{where}/epi-v", (x, rn(C, 1, 3, 1, s=0.4), (ang, 1), "once", None)
+        del x
+        yield f"{where}-hr/d1", (rn(B, 2 * H, 2 * W, C, dt=dtype), w33, 1, "tap", None)
+
     def mosaic(hr):  # a whole-scene dispatch: 4 mosaics of 5x5 LR views padded
         # by 8 and rounded up to a multiple of 8 (720x720 Synth, 640x880 Real)
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
     main = (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
             ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c",
-                                      "K10")),
+                                      "K10", "K11")),
             ("synth", mosaic(SYNTH_HR),
-             ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10")),
-            ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c", "K10")))
+             ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10", "K11")),
+            ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c", "K10",
+                                       "K11")))
     for where, shape, names in () if n24_only else main:
         for name in names:
+            if name == "K11":
+                if only is None or name in only:
+                    for site, args in k11_cases(where, *shape):
+                        yield name, site, args
+                continue
             if only is None or name in only:
                 yield name, where, operands(name, *shape,
                                             f32_input=name == "K7" and where in ("tiled", "real"))
@@ -400,6 +429,10 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
     if name == "K8":  # q k^T and p v per head; mask add, max, exp, sum
         B, L, D = x.shape
         return nbytes, 4.0 * B * L * L * D, 4.0 * B * args[4] * L * L
+    if name == "K11":  # per output: KK products and KK - 1 adds, and the bias add
+        w, bias = args[1], args[4]
+        kk = w.shape[-2] * w.shape[-1]
+        return nbytes, 0.0, float(x.numel() * (2 * kk - 1 + (bias is not None)))
     raise KeyError(name)
 
 
@@ -430,6 +463,45 @@ def sdpa_call(q, k, v, mask, heads):
     qs, ks, vs, m = split(q), split(k), split(v), mask.to(q.dtype)
     run = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=m)
     return run, lambda o: o.transpose(1, 2).reshape(B, L, D)
+
+
+def conv2d_call(x, w, dilation, rounding, bias):
+    """K11's "once" convolution as the one PyTorch call the flagship made
+    before K11 (``F.conv2d``, cuDNN's grouped conv on the NHWC map), without
+    the bias: the library yardstick."""
+    (dh, dw), C = ((dilation, dilation) if isinstance(dilation, int) else dilation), x.shape[-1]
+    pad = (dh * (w.shape[-2] - 1) // 2, dw * (w.shape[-1] - 1) // 2)
+    xc, wc = x.permute(0, 3, 1, 2), w.to(x.dtype)
+    return lambda: torch.nn.functional.conv2d(xc, wc, None, padding=pad, dilation=(dh, dw),
+                                              groups=C)
+
+
+def k11_against_twin(got, want, args, where: str) -> None:
+    """K11's own check beside the shared bound: "tap" equals the chain bit
+    for bit; "once" lies within one ulp of the dtype of F.conv2d's, plus
+    the float32 sums' own rounding in another order: (KK - 1) 2^-23 of the
+    sum of |x w| (KK - 1 adds a side, each within 2^-24 of it)."""
+    from lfsr_tpu_torch.ops import depthwise as dw
+
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    if args[3] == "tap":
+        same = torch.equal(bits(got), bits(want))
+        log(f"[kernels] K11 {str(got.dtype)[6:]:8s} {where}: equals the chain bit for bit: {same}")
+        assert same, f"K11 {where}: tap differs from the chain"
+        return
+    x, w, d, rounding, _ = args
+    conv, ref = got.float(), want.float()
+    kk = w.shape[-2] * w.shape[-1]
+    slack = (kk - 1) * 2.0**-23 * dw.depthwise_plain(x.abs(), w.abs(), d, rounding).float()
+    big = torch.maximum(conv.abs(), ref.abs())  # one ulp of the larger: frexp's m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(big),
+                      torch.frexp(big).exponent - (8 if x.dtype == torch.bfloat16 else 24))
+    diff = (conv - ref).abs()
+    within = bool((diff <= ulp + slack).all())
+    log(f"[kernels] K11 {str(x.dtype)[6:]:8s} {where}: the conv within one ulp of F.conv2d's: "
+        f"{within} (max|d| {diff.max().item():.3e}, {(diff > 0).float().mean().item():.2e} of "
+        f"values differ)")
+    assert within, f"K11 {where}: once differs from F.conv2d by more than an ulp"
 
 
 def timed_call(fn):
@@ -477,7 +549,7 @@ def k3_passes(args, where: str) -> None:
 
 def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     from lfsr_tpu_torch import trace
-    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, head
+    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, depthwise as dw, head
     from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
 
     pairs = {
@@ -494,14 +566,17 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K9b": (scan.scan_gated_fused, scan.scan_gated_plain),
         "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain),
         "K10": (head.hlfr_tail, head.hlfr_tail_plain),
+        "K11": (dw.depthwise_conv, dw.depthwise_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
     # Synth whole-scene dispatch, the flagship's default eval, where all of
-    # them run; K2 and K3 at the batch-8 train step; K9a at the train shape
-    # of its op phase, delta after softplus; K8 at EPIT's default (tiled) eval
+    # them run (K11 its 3x3 d 1 "tap" site there); K2 and K3 at the batch-8
+    # train step; K9a at the train shape of its op phase, delta after
+    # softplus; K8 at EPIT's default (tiled) eval
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
-                "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8" else "synth")
+                "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8"
+                else "synth/d1" if k == "K11" else "synth")
             for k in pairs}
     # the kernels with two paths: which one a call takes (each counted in
     # the trace table as launches/<K>/<path>)
@@ -511,6 +586,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K6": lambda a: wa.kernel_path(a[0].shape[-1], 4, 8),
         "K7": lambda a: block.kernel_path(a[3].dtype),
         "K8": lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4]),
+        "K11": lambda a: a[3],  # its rounding
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
@@ -526,8 +602,8 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
                 assert counts == {k: v + (k == path) for k, v in before.items()}, (name, counts)
                 # the flagship's K4 takes its tile kernel; K6, and K5 and K7
                 # in bf16, take the tensor cores
-                assert (path == "tile" if name == "K4" else path == "mma" or name == "K8" or (
-                    name != "K6" and dtype == torch.float32)), (name, dtype, path)
+                assert (path == "tile" if name == "K4" else path == "mma" or name in ("K8", "K11")
+                        or (name != "K6" and dtype == torch.float32)), (name, dtype, path)
                 log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the {PATH_NAMES[path]} "
                     f"kernel ({path})" + (f", x {str(args[0].dtype)[6:]}" if name == "K7" else ""))
             if name == "K1" and dtype == torch.bfloat16:
@@ -539,6 +615,8 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
                 log(f"[kernels] K2 {str(dtype)[6:]:8s} y == K1 y bit for bit: {same}")
                 assert same, f"K2 {dtype}: y differs from K1's"
             want, plain_ms = timed_call(lambda: plain(*args))
+            if name == "K11":  # "tap": the chain bit for bit; "once": within an ulp of cuDNN's
+                k11_against_twin(got, want, args, where)
             # each output against its own scale (K3's dA sums over L, its du
             # does not); float32 outputs (K2's states, all of K3's) from
             # bf16 inputs are computed in float32 on both sides, K10's from
@@ -549,6 +627,9 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
                       for (a, _), (_, sc) in zip(outs, errs)]
             bound_ms, bound_by, core_ms = bound(name, args, [a for a, _ in outs])
             library_ms, lib_note = None, ""
+            if name == "K11" and args[3] == "once":  # cuDNN's grouped conv, the old call
+                library_ms = time_ms(conv2d_call(*args))
+                lib_note = f", F.conv2d (cuDNN) {library_ms:.4f} ms"
             if name == "K8":
                 run, layout = sdpa_call(*args)
                 lib_err = (layout(run()).float() - want.float()).abs().max().item()
@@ -1470,7 +1551,8 @@ def main() -> int:
     log(f"[build] nvcc sm_90a -> {_cuda.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10"),
+    names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10",
+                          "K11"),
              "EPIT": ("K8",), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)

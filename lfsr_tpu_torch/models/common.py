@@ -12,6 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lfsr_tpu_torch.ops.depthwise import check_conv as check_depthwise, depthwise_conv
+
 
 def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
@@ -25,7 +27,10 @@ def lrelu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 class Conv(nn.Module):
     """flax ``nn.Conv`` with torch Conv2d-style integer padding, NHWC in and
     out, computed in ``dtype``; the bias is added after the convolution in
-    ``dtype``, as flax does. 1x1 convs run as matmuls (same map)."""
+    ``dtype``, as flax does. 1x1 convs run as matmuls (same map). A
+    depthwise conv (groups = c_in = c_out > 1) runs as K11 in its
+    ``"once"`` rounding, the conv's own; one K11 does not take
+    (``ops.depthwise.check_conv``) is refused when it is built."""
 
     def __init__(self, c_in: int, c_out: int, kernel=3, dilation=1, padding=0,
                  groups: int = 1, bias: bool = True, dtype=torch.float32, device=None):
@@ -37,11 +42,16 @@ class Conv(nn.Module):
         self.padding = _pair(padding)
         self.groups = groups
         self.dtype = dtype
+        self.depthwise = 1 < groups == c_in == c_out
+        if self.depthwise:
+            check_depthwise(c_out, (kh, kw), self.dilation, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.weight.shape[-2:] == (1, 1) and self.groups == 1:
             y = x.to(dt) @ mix_kernel(self, dt)
+        elif self.depthwise:
+            return depthwise_conv(x.to(dt), self.weight, self.dilation, "once", self.bias)
         else:
             y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
                          padding=self.padding, dilation=self.dilation,
@@ -77,19 +87,9 @@ def pw_apply(conv: Conv, x: torch.Tensor, dt) -> torch.Tensor:
 def dw_apply(conv: Conv, x: torch.Tensor, dt) -> torch.Tensor:
     """Depthwise KxK conv (zero 'same' padding, the conv's dilation) as
     shift-multiply-adds in ``dt``, taps accumulated in (ky, kx) order — the
-    JAX ``_dw_apply`` form, rounding included."""
-    k = conv.weight.shape[-1]
-    d = conv.dilation[0]
-    wk = conv.weight[:, 0].permute(1, 2, 0).to(dt)  # [K, K, C]
-    pad = d * (k - 1) // 2
-    xp = F.pad(x.to(dt), (0, 0, pad, pad, pad, pad))
-    H, W = x.shape[1], x.shape[2]
-    out = None
-    for ky in range(k):
-        for kx in range(k):
-            term = xp[:, ky * d : ky * d + H, kx * d : kx * d + W, :] * wk[ky, kx]
-            out = term if out is None else out + term
-    return out
+    JAX ``_dw_apply`` form, rounding included: K11 in its ``"tap"``
+    rounding (``ops.depthwise``)."""
+    return depthwise_conv(x.to(dt), conv.weight, conv.dilation, "tap")
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:

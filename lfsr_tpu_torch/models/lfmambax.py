@@ -15,9 +15,11 @@ wanted; K9b or K9c in its place under ``model_kwargs={'scan_impl': 'gated'
 | 'fused'}``), K4/K5 (cross-scan gather and scatter), K6 (window
 attention), K7 (LayerNorm + local branch: on the float32 residual stream
 below the TPU's gate, on it rounded to the compute dtype at the gate, so
-JAX's two branches), and once per forward K10 (the HLFR tail: expansion
-matmul + lrelu + the folded out-conv). ``module.train()`` turns on the
-blocks' dropout (JAX ``train=True``).
+JAX's two branches), once per forward K10 (the HLFR tail: expansion
+matmul + lrelu + the folded out-conv), and K11 at the 13 depthwise convs
+outside the blocks (``dw_apply``'s 11 in the JAX ``_dw_apply`` rounding,
+LSFL's two EPI convs in a conv's).
+``module.train()`` turns on the blocks' dropout (JAX ``train=True``).
 
 A forward runs in the spans (``trace.span``) ``model.input``,
 ``model.ife``, ``model.block`` (each block, with ``model.block.ssm`` around

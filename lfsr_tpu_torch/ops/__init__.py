@@ -4,18 +4,21 @@ Each hand-written Hopper kernel has a wrapper (kernel on CUDA tensors,
 plain twin on CPU tensors) that runs in its span (``trace.span("K1")`` ...)
 and counts its launches in the trace table (``launches/K1`` ...;
 ``_cuda.counted``); K2 and K3 run inside the scan's autograd Function
-(``scan.ScanProj``) and K4-K8, K9a-K9c and K10 inside ``_cuda.PlainVJP``
-when a gradient is wanted. ``KERNELS`` lists them with their sources and
-the TPU kernels they replace. K5's, K6's, K7's and K8's counters
+(``scan.ScanProj``) and K4-K8, K9a-K9c, K10 and K11 inside
+``_cuda.PlainVJP`` when a gradient is wanted. ``KERNELS`` lists them with
+their sources and the TPU kernels they replace. K5's, K6's, K7's and K8's counters
 ``launches/<K>/mma`` and ``launches/<K>/fma`` split their launches between
 each one's tensor-core and CUDA-core kernels; K4's ``launches/K4/tile``
-and ``launches/K4/warp`` between its tile kernel and its one-warp kernel.
+and ``launches/K4/warp`` between its tile kernel and its one-warp kernel;
+K11's ``launches/K11/tap`` and ``launches/K11/once`` between its two
+roundings.
 """
 
 from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
+from lfsr_tpu_torch.ops.depthwise import depthwise_conv
 from lfsr_tpu_torch.ops.head import hlfr_tail
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
@@ -71,6 +74,11 @@ KERNELS = {
     ),
     "K10 hlfr_tail": (
         hlfr_tail, "lfsr_tpu_torch/csrc/hlfr_tail.cu", "lfsr_tpu/ops/pallas_head.py:151",
+    ),
+    "K11 depthwise_conv": (
+        depthwise_conv, "lfsr_tpu_torch/csrc/depthwise.cu",
+        "none: JAX runs _dw_apply (lfsr_tpu/models/lfmambax.py:57) as XLA-fused elementwise "
+        "ops and LSFL's EPI convs as XLA grouped convs",
     ),
 }
 

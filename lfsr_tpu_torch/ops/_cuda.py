@@ -90,6 +90,9 @@ _SIGNATURES = {
     # y, w1, w36, bias, out, B, H, W, C, Cz, tile rows, tile columns, slope,
     # dtype, stream
     "lfsr_hlfr_tail": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    # x, w, bias (or null), y, B, H, W, C, kh, kw, dh, dw, channels a staged
+    # tile, tile rows, tile columns, staged tiles, rounding, dtype, stream
+    "lfsr_depthwise": [_P] * 4 + [_I] * 14 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

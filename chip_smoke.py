@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-only    # build + kernels + the training phases (and K9a's op)
     python3 chip_smoke.py --entry-only    # build + the flagship's kernels + the entry-point phase
     python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
+    python3 chip_smoke.py --model LFT     # build + K8 and K12 vs plain + LFT's phases only
     python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
     python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
     python3 chip_smoke.py --d-state-24    # build + K1-K3, K9a-K9c at d_state 24 vs plain only
@@ -42,7 +43,13 @@ Phases (any failure exits non-zero):
    batch-8 training ([1280, 160, 128]), with EPIT's own mask, beside one
    ``scaled_dot_product_attention`` call on the same inputs (the library
    yardstick, used nowhere in the port), and which of K8's two kernels
-   took each call (bf16: the tensor-core one; float32: the CUDA-core one),
+   took each call (bf16: the tensor-core one; float32: the CUDA-core one);
+   K8 at LFT's AngTrans call (q/k/v [16384, 25, 64], 8 heads of 8, a zero
+   [25, 25] mask: every LR pixel of 16 tiles of 32 x 32, the CUDA-core
+   kernel in both dtypes), beside the same library call; K12 (LFT's 5x5
+   banded spatial attention) at its tiled call (q/k/v [400, 1024, 128],
+   8 heads of 16: 16 tiles x 25 views of 32 x 32 tokens), and which of its
+   kernels took it (bf16: tensor cores; float32: CUDA cores),
    and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
    and K7's (bf16: the tensor-core ones), of K4's (every flagship call,
    bf16 and float32: the tile kernel). K1, K2,
@@ -117,10 +124,19 @@ Phases (any failure exits non-zero):
    step), the NaN-skip and one float32 step's gradients kernels vs twins;
    every K8 launch of the bf16 phases on its tensor-core kernel, of the
    float32 gradient check on its CUDA-core one.
-8. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
+8. LFT (64 channels, 4 blocks, bf16, seeded init), its default tiled
+   ``evaluate_sets`` at the cell's 32 / 16 patches, 16 a call, of one
+   512^2-HR scene (4 calls: K8 and K12 4 launches each a call, read after
+   a count reset, nothing else) against the plain twins, and its batch-8
+   train step (L1, augmentation, masking, AdamW; K8 and K12 4 per step),
+   the NaN-skip and one float32 step's gradients kernels vs twins; every
+   K12 launch of the bf16 phases on its tensor-core kernel, of the float32
+   gradient check on its CUDA-core one; every K8 launch (head dim 8) on its
+   CUDA-core one.
+9. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
    80], float32, forward and one backward of sum(y^2) on the kernel and on
    the plain twin: y and every gradient against the twin's.
-9. Prints the card, the kernels' JSON line, then the final result line.
+10. Prints the card, the kernels' JSON line, then the final result line.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -183,6 +199,10 @@ TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
 EPIT_PER_FORWARD = {"K8 masked_mha_fused": 10}
+# LFT: K8 (AngTrans) and K12 (SpaTrans) once a block, 4 blocks, forward only
+# (their gradients are the plain twins', as on the TPU)
+LFT_PER_FORWARD = {"K8 masked_mha_fused": 4, "K12 local_window_mha": 4}
+LFT_PARAMS, LFT_TILES = 1_163_392, 16  # its parameters; tiles a call, as in lft.tiled_test
 # the flagship's opt-in scans: each takes K1's place, 12 per forward (in a
 # train step too, where K2 and K3 then do not run: the gradient is the twin's)
 SCAN_IMPL_KERNELS = {"gated": "K9b scan_gated_fused", "fused": "K9c mamba_inner_fused"}
@@ -262,7 +282,10 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     D given) at train, tiled and Synth, with delta given after softplus
     ("where" as is) and before it ("where/raw"); K8 at EPIT's tiled eval
     (2 patches x 5 x 32 sequences) and batch-8 train step (8 x 5 x 32),
-    L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask; K1,
+    L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask, and
+    at LFT's AngTrans call (16 x 32 x 32 sequences of 25 tokens, 64
+    channels, 8 heads, a zero mask); K12 at LFT's SpaTrans call (16 tiles x
+    25 views of 32 x 32 tokens, 128 channels, 8 heads, 5 x 5); K1,
     K2, K3 and K9a-K9c at d_state 24 ("v7-n24": [8, 25600, 90], dt rank 5;
     K9a with delta before softplus). ``only``: the kernels to yield (default
     all); ``n24_only``: the d_state 24 cases alone."""
@@ -361,6 +384,12 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
         mask = band_mask(5, 32, 10, 11, torch.device(dev))  # EPIT's mask, L = 160
         for where, seqs in (("epit-tiled", 2 * 5 * 32), ("epit-train", 8 * 5 * 32)):
             yield "K8", where, (*(rn(seqs, 160, 2 * C, dt=dtype) for _ in range(3)), mask, HEADS)
+        zero = torch.zeros(25, 25, device=dev)  # LFT's AngTrans: all 25 angular tokens
+        yield "K8", "lft-ang", (*(rn(LFT_TILES * 32 * 32, 25, C, dt=dtype) for _ in range(3)),
+                                zero, 8)
+    if (only is None or "K12" in only) and not n24_only:
+        yield "K12", "lft-tiled", (*(rn(LFT_TILES * 25, 32 * 32, 2 * C, dt=dtype)
+                                     for _ in range(3)), 8, 32, 32, 5, 5)
     # d_state 24 (EfficientLFNetV7's default) at its widths (Di 90, dt rank
     # 5) on the batch-8 train step's scan length
     for name in N24_KERNELS:
@@ -429,6 +458,10 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
     if name == "K8":  # q k^T and p v per head; mask add, max, exp, sum
         B, L, D = x.shape
         return nbytes, 4.0 * B * L * L * D, 4.0 * B * args[4] * L * L
+    if name == "K12":  # per token and window slot: q.k and p v per head; max, exp, sum
+        B, L, D = x.shape
+        slots = args[6] * args[7]
+        return nbytes, 4.0 * B * L * slots * D, 4.0 * B * L * args[3] * slots
     if name == "K11":  # per output: KK products and KK - 1 adds, and the bias add
         w, bias = args[1], args[4]
         kk = w.shape[-2] * w.shape[-1]
@@ -550,7 +583,8 @@ def k3_passes(args, where: str) -> None:
 def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     from lfsr_tpu_torch import trace
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, depthwise as dw, head
-    from lfsr_tpu_torch.ops import masked_attention as ma, scan, window_attention as wa
+    from lfsr_tpu_torch.ops import local_attention as la, masked_attention as ma, scan
+    from lfsr_tpu_torch.ops import window_attention as wa
 
     pairs = {
         "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain),
@@ -567,16 +601,17 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K9c": (scan.mamba_inner_fused, scan.mamba_inner_plain),
         "K10": (head.hlfr_tail, head.hlfr_tail_plain),
         "K11": (dw.depthwise_conv, dw.depthwise_plain),
+        "K12": (la.local_window_mha, la.local_window_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
     # Synth whole-scene dispatch, the flagship's default eval, where all of
     # them run (K11 its 3x3 d 1 "tap" site there); K2 and K3 at the batch-8
     # train step; K9a at the train shape of its op phase, delta after
-    # softplus; K8 at EPIT's default (tiled) eval
+    # softplus; K8 at EPIT's default (tiled) eval; K12 at LFT's tiled call
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8"
-                else "synth/d1" if k == "K11" else "synth")
+                else "synth/d1" if k == "K11" else "lft-tiled" if k == "K12" else "synth")
             for k in pairs}
     # the kernels with two paths: which one a call takes (each counted in
     # the trace table as launches/<K>/<path>)
@@ -587,6 +622,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K7": lambda a: block.kernel_path(a[3].dtype),
         "K8": lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4]),
         "K11": lambda a: a[3],  # its rounding
+        "K12": lambda a: la.kernel_path(a[0].dtype),
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
@@ -797,11 +833,14 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     16) on its tensor-core kernel; every K5 and K7 launch on its
     tensor-core kernel in bf16 (``cfg`` None: the flagship's default, bf16)
     and on its CUDA-core one in float32; for ``cfg``'s EPIT, every K8
-    launch by the kernel ``k8_kernel`` names."""
+    launch by the kernel ``k8_kernel`` names; for ``cfg``'s LFT, every K8
+    launch (head dim 8) on its CUDA-core kernel and every K12 launch on the
+    kernel of ``cfg``'s compute dtype."""
     from lfsr_tpu_torch import trace
+    from lfsr_tpu_torch.ops import local_attention, masked_attention
 
-    k4_paths, k5_paths, k6_paths, k7_paths, k8_paths = (
-        trace.counts(f"launches/{k}/") for k in ("K4", "K5", "K6", "K7", "K8"))
+    k4_paths, k5_paths, k6_paths, k7_paths, k8_paths, k12_paths = (
+        trace.counts(f"launches/{k}/") for k in ("K4", "K5", "K6", "K7", "K8", "K12"))
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
@@ -828,6 +867,16 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
         assert k8_paths[path] == k8 > 0, (k8_paths, k8)
         log(f"[{what}] K8 launches by kernel {k8_paths}: all {k8} on the "
             f"{'tensor-core' if path == 'mma' else 'CUDA-core'} kernel")
+    if cfg is not None and cfg.model_name == "LFT":
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        for name, paths, path in (
+                ("K8 masked_mha_fused", k8_paths, masked_attention.kernel_path(dtype, 8)),
+                ("K12 local_window_mha", k12_paths, local_attention.kernel_path(dtype))):
+            n = counts[name]
+            assert path == ("mma" if name.startswith("K12") and bf16 else "fma"), (name, path)
+            assert paths[path] == n > 0 and sum(paths.values()) == n, (what, name, paths, n)
+            log(f"[{what}] {name.split()[0]} launches by kernel {paths}: all {n} on the "
+                f"{PATH_NAMES[path]} kernel")
 
 
 def check_views(views: dict, scenes, ang: int, s: int, what: str) -> None:
@@ -1507,6 +1556,27 @@ def run_epit(profile: bool = False, eval_paths: bool = True) -> dict:
     return add(*runs)
 
 
+def run_lft(profile: bool = False, eval_paths: bool = True) -> dict:
+    """LFT's paths: its default tiled eval at the cell's 16 tiles a call
+    and its batch-8 train step. Returns their launches."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.models.registry import whole_scene_default
+
+    cfg = Config(model_name="LFT", minibatch_for_test=LFT_TILES)
+    assert not whole_scene_default(cfg), "LFT's default eval is tiled"
+    assert (cfg.patch_size_for_test, cfg.stride_for_test) == (32, 16), cfg
+    model, sd = seeded_model(cfg, LFT_PARAMS)
+    runs = []
+    if eval_paths:
+        if profile:
+            profile_tiled_dispatch(model, cfg)
+        runs.append(run_tiled(model, cfg, LFT_PER_FORWARD, "lft tiled"))
+    del model
+    torch.cuda.empty_cache()
+    runs.append(run_train(sd, cfg.replace(batch_size=8), LFT_PER_FORWARD, profile, "lft train"))
+    return add(*runs)
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1521,7 +1591,7 @@ def main() -> int:
                     help="after the kernel phase run the training phases (every scan_impl's "
                          "for the flagship) and K9a's op only (no eval paths)")
     only = ap.add_mutually_exclusive_group()
-    only.add_argument("--model", choices=("LFMambaX", "EPIT"),
+    only.add_argument("--model", choices=("LFMambaX", "EPIT", "LFT"),
                       help="only this model's kernels and phases (default: both)")
     only.add_argument("--scan-impl", choices=tuple(SCAN_IMPL_KERNELS),
                       help="only the flagship's kernel of this scan_impl (K9b or K9c), its "
@@ -1553,7 +1623,7 @@ def main() -> int:
 
     names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10",
                           "K11"),
-             "EPIT": ("K8",), None: None}[args.model]
+             "EPIT": ("K8",), "LFT": ("K8", "K12"), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     if args.entry_only:
@@ -1580,6 +1650,9 @@ def main() -> int:
     if args.model in (None, "EPIT") and not (args.scan_impl or args.entry_only):
         runs.append(run_epit(profile=args.profile, eval_paths=eval_paths))
         lap("EPIT")
+    if args.model in (None, "LFT") and not (args.scan_impl or args.entry_only):
+        runs.append(run_lft(profile=args.profile, eval_paths=eval_paths))
+        lap("LFT")
     launches = add(*runs)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

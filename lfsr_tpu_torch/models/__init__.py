@@ -1,1 +1,1 @@
-"""Model zoo of the port (the flagship only, so far)."""
+"""Model zoo of the port: the flagship ``LFMambaX``, ``EPIT`` and ``LFT``."""

@@ -11,7 +11,11 @@ their sources and the TPU kernels they replace. K5's, K6's, K7's and K8's counte
 each one's tensor-core and CUDA-core kernels; K4's ``launches/K4/tile``
 and ``launches/K4/warp`` between its tile kernel and its one-warp kernel;
 K11's ``launches/K11/tap`` and ``launches/K11/once`` between its two
-roundings.
+roundings. K12 (LFT's banded spatial attention, ``local_window_mha``)
+counts ``launches/K12``, split as ``launches/K12/mma`` (bfloat16, tensor
+cores) and ``launches/K12/fma`` (float32, CUDA cores), and runs inside
+``_cuda.PlainVJP`` when a gradient is wanted. K11 and K12 replace no TPU
+kernel: JAX runs their ops as XLA ops.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.depthwise import depthwise_conv
 from lfsr_tpu_torch.ops.head import hlfr_tail
+from lfsr_tpu_torch.ops.local_attention import local_window_mha
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
     mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
@@ -79,6 +84,10 @@ KERNELS = {
         depthwise_conv, "lfsr_tpu_torch/csrc/depthwise.cu",
         "none: JAX runs _dw_apply (lfsr_tpu/models/lfmambax.py:57) as XLA-fused elementwise "
         "ops and LSFL's EPI convs as XLA grouped convs",
+    ),
+    "K12 local_window_mha": (
+        local_window_mha, "lfsr_tpu_torch/csrc/local_attention.cu",
+        "none: JAX runs local_window_mha (lfsr_tpu/ops/local_attention.py) as XLA ops",
     ),
 }
 

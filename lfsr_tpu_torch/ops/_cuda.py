@@ -93,6 +93,10 @@ _SIGNATURES = {
     # x, w, bias (or null), y, B, H, W, C, kh, kw, dh, dw, channels a staged
     # tile, tile rows, tile columns, staged tiles, rounding, dtype, stream
     "lfsr_depthwise": [_P] * 4 + [_I] * 14 + [_P],
+    # q, k, v, o, B, h, w, D, heads, k_r, k_c, qscale, stream (K12: bf16 on the
+    # tensor cores, float32 on the CUDA cores)
+    "lfsr_local_mha_mma": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "lfsr_local_mha": [_P] * 4 + [_I] * 7 + [_F, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -232,3 +232,28 @@ def test_kernel_wrappers_carry_their_span_names():
     table = trace.counts("launches/")
     for name, (fn, _, _) in KERNELS.items():
         assert fn.kernel == name.split()[0] and fn.kernel in table
+
+
+def test_lft_forward_records_its_blocks_and_attentions():
+    """LFT at its registered width on the CPU (the wrappers run their
+    twins): each of the 4 blocks' angular and spatial stages once, each
+    with one attention span, K8 inside the angular one and K12 inside the
+    spatial one (their launches, counted on the card, are the GPU tests')."""
+    cfg = Config(model_name="LFT", compute_dtype="float32")
+    m = get_model(cfg, device="cpu")
+    m.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    x = torch.rand(1, 40, 40, 1)
+    with torch.inference_mode():
+        m(x)  # the codes and K8's mask reach the device once, before the recording
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            y = m(x)
+    assert y.shape == (1, 160, 160, 1)
+    want = {"model.input": 1, "model.stem": 1, "model.ang": 4, "model.ang.attn": 4,
+            "model.spa": 4, "model.spa.attn": 4, "model.output": 1, "K8": 4, "K12": 4}
+    assert _calls() == want
+    assert _lfsr_events(prof) == {trace.PREFIX + k for k in want}
+    for r in trace.records():
+        if r.name in ("K8", "K12"):
+            stage = "model.ang" if r.name == "K8" else "model.spa"
+            assert _ancestors(r) == [stage + ".attn", stage]
+    assert trace.summary()["counts"] == {}  # no host data copied, nothing launched on the CPU

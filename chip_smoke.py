@@ -5,8 +5,8 @@
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain only
     python3 chip_smoke.py --train-only    # build + kernels + the training phases (and K9a's op)
     python3 chip_smoke.py --entry-only    # build + the flagship's kernels + the entry-point phase
-    python3 chip_smoke.py --model EPIT    # build + K8 vs plain + EPIT's phases only
-    python3 chip_smoke.py --model LFT     # build + K8 and K12 vs plain + LFT's phases only
+    python3 chip_smoke.py --model EPIT    # build + K8 and K13 vs plain + EPIT's phases only
+    python3 chip_smoke.py --model LFT     # build + K8, K12 and K13 vs plain + LFT's phases only
     python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
     python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
     python3 chip_smoke.py --d-state-24    # build + K1-K3, K9a-K9c at d_state 24 vs plain only
@@ -49,7 +49,13 @@ Phases (any failure exits non-zero):
    kernel in both dtypes), beside the same library call; K12 (LFT's 5x5
    banded spatial attention) at its tiled call (q/k/v [400, 1024, 128],
    8 heads of 16: 16 tiles x 25 views of 32 x 32 tokens), and which of its
-   kernels took it (bf16: tensor cores; float32: CUDA cores),
+   kernels took it (bf16: tensor cores; float32: CUDA cores); K13 (the
+   LayerNorm with the code's add folded in) at LFT's AngTrans call (x
+   [16384, 25, 64] + the float32 code [1, 25, 64]), its SpaTrans call
+   ([400, 1024, 128] + the embedded code [1, 1024, 128] of the compute
+   dtype) and EPIT's tiled call ([320, 160, 128], no code), beside one
+   ``F.layer_norm`` of x alone (the library yardstick, used nowhere in the
+   port),
    and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
    and K7's (bf16: the tensor-core ones), of K4's (every flagship call,
    bf16 and float32: the tile kernel). K1, K2,
@@ -119,16 +125,17 @@ Phases (any failure exits non-zero):
    official MACs, PASS, latency and peak memory on the card.
 7. EPIT (64 channels, 5 AltFilters, 8 heads, bf16, seeded init), its
    default tiled ``evaluate_sets`` of one 512^2-HR scene (32 dispatches of
-   2 patches: K8 320 launches, nothing else) against the plain twins, and
-   its batch-8 train step (L1, augmentation, masking, AdamW; K8 10 per
-   step), the NaN-skip and one float32 step's gradients kernels vs twins;
-   every K8 launch of the bf16 phases on its tensor-core kernel, of the
+   2 patches: K8 320 launches, K13 640, nothing else) against the plain
+   twins, and its batch-8 train step (L1, augmentation, masking, AdamW; K8
+   10 and K13 20 per step), the NaN-skip and one float32 step's gradients
+   kernels vs twins; every K8 launch of the bf16 phases on its tensor-core kernel, of the
    float32 gradient check on its CUDA-core one.
 8. LFT (64 channels, 4 blocks, bf16, seeded init), its default tiled
    ``evaluate_sets`` at the cell's 32 / 16 patches, 16 a call, of one
-   512^2-HR scene (4 calls: K8 and K12 4 launches each a call, read after
-   a count reset, nothing else) against the plain twins, and its batch-8
-   train step (L1, augmentation, masking, AdamW; K8 and K12 4 per step),
+   512^2-HR scene (4 calls: K8 and K12 4 launches each a call, K13 16, 8
+   of them with the code, read after a count reset, nothing else) against
+   the plain twins, and its batch-8 train step (L1, augmentation, masking,
+   AdamW; K8 and K12 4 per step, K13 16),
    the NaN-skip and one float32 step's gradients kernels vs twins; every
    K12 launch of the bf16 phases on its tensor-core kernel, of the float32
    gradient check on its CUDA-core one; every K8 launch (head dim 8) on its
@@ -198,10 +205,14 @@ PER_STEP = {"K1 selective_scan_proj": 0, "K2 selective_scan_proj_states": 12,
 TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
-EPIT_PER_FORWARD = {"K8 masked_mha_fused": 10}
-# LFT: K8 (AngTrans) and K12 (SpaTrans) once a block, 4 blocks, forward only
-# (their gradients are the plain twins', as on the TPU)
-LFT_PER_FORWARD = {"K8 masked_mha_fused": 4, "K12 local_window_mha": 4}
+# and K13 at the two LayerNorms of each of those 10 transformer calls
+EPIT_PER_FORWARD = {"K8 masked_mha_fused": 10, "K13 layer_norm": 20}
+# LFT: K8 (AngTrans) and K12 (SpaTrans) once a block, 4 blocks, K13 at the
+# two LayerNorms of each of the 8 stages (the first with the code's add),
+# forward only (their gradients are the plain twins', as on the TPU)
+LFT_PER_FORWARD = {"K8 masked_mha_fused": 4, "K12 local_window_mha": 4, "K13 layer_norm": 16}
+# of each model's K13 launches, the share that folds in a code
+K13_CODE_SHARE = {"LFT": 0.5, "EPIT": 0.0}
 LFT_PARAMS, LFT_TILES = 1_163_392, 16  # its parameters; tiles a call, as in lft.tiled_test
 # the flagship's opt-in scans: each takes K1's place, 12 per forward (in a
 # train step too, where K2 and K3 then do not run: the gradient is the twin's)
@@ -285,7 +296,9 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     L = 5 x 32 tokens of 128 channels, 8 heads, EPIT's own band mask, and
     at LFT's AngTrans call (16 x 32 x 32 sequences of 25 tokens, 64
     channels, 8 heads, a zero mask); K12 at LFT's SpaTrans call (16 tiles x
-    25 views of 32 x 32 tokens, 128 channels, 8 heads, 5 x 5); K1,
+    25 views of 32 x 32 tokens, 128 channels, 8 heads, 5 x 5); K13 at LFT's
+    AngTrans and SpaTrans LayerNorms with their codes and at EPIT's tiled
+    one (x, gamma, beta, code or None, out dtype); K1,
     K2, K3 and K9a-K9c at d_state 24 ("v7-n24": [8, 25600, 90], dt rank 5;
     K9a with delta before softplus). ``only``: the kernels to yield (default
     all); ``n24_only``: the d_state 24 cases alone."""
@@ -390,6 +403,14 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     if (only is None or "K12" in only) and not n24_only:
         yield "K12", "lft-tiled", (*(rn(LFT_TILES * 25, 32 * 32, 2 * C, dt=dtype)
                                      for _ in range(3)), 8, 32, 32, 5, 5)
+    if (only is None or "K13" in only) and not n24_only:
+        for where, shape, code in (  # AngTrans's code is float32, SpaTrans's the compute dtype
+                ("lft-ang", (LFT_TILES * 32 * 32, 25, C), rn(1, 25, C)),
+                ("lft-spa", (LFT_TILES * 25, 32 * 32, 2 * C), rn(1, 32 * 32, 2 * C, dt=dtype)),
+                ("epit-tiled", (2 * 5 * 32, 160, 2 * C), None)):
+            d = shape[-1]
+            yield "K13", where, (rn(*shape, s=2.0, dt=dtype), 1 + rn(d, s=0.2), rn(d, s=0.1),
+                                 code, dtype)
     # d_state 24 (EfficientLFNetV7's default) at its widths (Di 90, dt rank
     # 5) on the batch-8 train step's scan length
     for name in N24_KERNELS:
@@ -462,6 +483,9 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
         B, L, D = x.shape
         slots = args[6] * args[7]
         return nbytes, 4.0 * B * L * slots * D, 4.0 * B * L * args[3] * slots
+    if name == "K13":  # per element: the code's add, sum(s) and sum(s s), r gamma,
+        # s - mean, the product and + beta
+        return nbytes, 0.0, float(x.numel() * (7 + (args[3] is not None)))
     if name == "K11":  # per output: KK products and KK - 1 adds, and the bias add
         w, bias = args[1], args[4]
         kk = w.shape[-2] * w.shape[-1]
@@ -496,6 +520,16 @@ def sdpa_call(q, k, v, mask, heads):
     qs, ks, vs, m = split(q), split(k), split(v), mask.to(q.dtype)
     run = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=m)
     return run, lambda o: o.transpose(1, 2).reshape(B, L, D)
+
+
+def layer_norm_call(x, gamma, beta, add, out_dtype):
+    """A LayerNorm over x alone as one PyTorch call (``F.layer_norm``, its
+    weights in x's dtype; the code's add not included): the library
+    yardstick for K13."""
+    from lfsr_tpu_torch.ops.cross_scan import EPS
+
+    g, b = gamma.to(x.dtype), beta.to(x.dtype)
+    return lambda: torch.nn.functional.layer_norm(x, (x.shape[-1],), g, b, EPS)
 
 
 def conv2d_call(x, w, dilation, rounding, bias):
@@ -585,6 +619,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, depthwise as dw, head
     from lfsr_tpu_torch.ops import local_attention as la, masked_attention as ma, scan
     from lfsr_tpu_torch.ops import window_attention as wa
+    from lfsr_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 
     pairs = {
         "K1": (scan.selective_scan_proj, scan.selective_scan_proj_plain),
@@ -602,16 +637,19 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K10": (head.hlfr_tail, head.hlfr_tail_plain),
         "K11": (dw.depthwise_conv, dw.depthwise_plain),
         "K12": (la.local_window_mha, la.local_window_plain),
+        "K13": (layer_norm, layer_norm_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
     # Synth whole-scene dispatch, the flagship's default eval, where all of
     # them run (K11 its 3x3 d 1 "tap" site there); K2 and K3 at the batch-8
     # train step; K9a at the train shape of its op phase, delta after
-    # softplus; K8 at EPIT's default (tiled) eval; K12 at LFT's tiled call
+    # softplus; K8 at EPIT's default (tiled) eval; K12 at LFT's tiled call;
+    # K13 at LFT's SpaTrans call
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8"
-                else "synth/d1" if k == "K11" else "lft-tiled" if k == "K12" else "synth")
+                else "synth/d1" if k == "K11" else "lft-tiled" if k == "K12"
+                else "lft-spa" if k == "K13" else "synth")
             for k in pairs}
     # the kernels with two paths: which one a call takes (each counted in
     # the trace table as launches/<K>/<path>)
@@ -666,6 +704,9 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
             if name == "K11" and args[3] == "once":  # cuDNN's grouped conv, the old call
                 library_ms = time_ms(conv2d_call(*args))
                 lib_note = f", F.conv2d (cuDNN) {library_ms:.4f} ms"
+            if name == "K13":  # one F.layer_norm of x alone, in x's dtype
+                library_ms = time_ms(layer_norm_call(*args))
+                lib_note = f", F.layer_norm (x alone) {library_ms:.4f} ms"
             if name == "K8":
                 run, layout = sdpa_call(*args)
                 lib_err = (layout(run()).float() - want.float()).abs().max().item()
@@ -835,12 +876,14 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     and on its CUDA-core one in float32; for ``cfg``'s EPIT, every K8
     launch by the kernel ``k8_kernel`` names; for ``cfg``'s LFT, every K8
     launch (head dim 8) on its CUDA-core kernel and every K12 launch on the
-    kernel of ``cfg``'s compute dtype."""
+    kernel of ``cfg``'s compute dtype; K13's launches with the code's add
+    ``K13_CODE_SHARE`` of its launches (half of LFT's, none of EPIT's)."""
     from lfsr_tpu_torch import trace
     from lfsr_tpu_torch.ops import local_attention, masked_attention
 
     k4_paths, k5_paths, k6_paths, k7_paths, k8_paths, k12_paths = (
         trace.counts(f"launches/{k}/") for k in ("K4", "K5", "K6", "K7", "K8", "K12"))
+    k13_code = trace.counter("launches/K13/code")
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{what}: {name} {n} launches, expected {want.get(name, 0)}"
     log(f"[{what}] launches {counts}")
@@ -862,6 +905,11 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     if k6:
         log(f"[{what}] K6 launches by kernel {k6_paths}: all {k6} on the tensor-core "
             f"kernel")
+    k13 = counts["K13 layer_norm"]
+    share = K13_CODE_SHARE.get(cfg.model_name, 0.0) if cfg is not None else 0.0
+    assert k13_code == share * k13, (what, k13_code, k13)
+    if k13:
+        log(f"[{what}] K13 launches: {k13}, {k13_code} of them with the code's add")
     if cfg is not None and cfg.model_name == "EPIT":
         k8, path = counts["K8 masked_mha_fused"], k8_kernel(cfg)
         assert k8_paths[path] == k8 > 0, (k8_paths, k8)
@@ -1623,7 +1671,7 @@ def main() -> int:
 
     names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10",
                           "K11"),
-             "EPIT": ("K8",), "LFT": ("K8", "K12"), None: None}[args.model]
+             "EPIT": ("K8", "K13"), "LFT": ("K8", "K12", "K13"), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     if args.entry_only:

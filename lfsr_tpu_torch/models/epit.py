@@ -14,6 +14,7 @@ parameters. The attention takes K8 (``ops.masked_attention``) exactly where
 the JAX module takes its Pallas kernel (``supported(L, d, heads)``; at full
 width L = 5 * 32 = 160, d = 128, 8 heads); other geometries run flax
 ``dot_product_attention`` semantics in plain PyTorch, as JAX runs XLA there.
+The transformer's two LayerNorms are K13 (``ops.layer_norm``).
 The banded locality mask is built with numpy on the host and moved to the
 device once per geometry.
 """
@@ -31,7 +32,7 @@ from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.common import Conv, LayerNorm, lrelu, pixel_shuffle
 from lfsr_tpu_torch.models.losses import l1
 from lfsr_tpu_torch.models.registry import register_model
-from lfsr_tpu_torch.ops.cross_scan import layer_norm_fast
+from lfsr_tpu_torch.ops.layer_norm import layer_norm
 from lfsr_tpu_torch.ops.layout import sai_to_views, views_to_sai
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused, supported
 from lfsr_tpu_torch.ops.resize import interpolate
@@ -103,7 +104,7 @@ class _EPITransformer(nn.Module):
         self.Dense_7 = lin(d, channels)
 
     def _ln(self, ln: LayerNorm, x):
-        return layer_norm_fast(x, ln.weight, ln.bias).to(self.dtype)
+        return layer_norm(x, ln.weight, ln.bias, None, self.dtype)
 
     def forward(self, tok, mask):
         # tok [B', L, C]; mask [L, L] additive float32

@@ -13,6 +13,8 @@ Per-view conv stem, ``n_blocks`` (4) alternating blocks of
 
 with sinusoidal position codes added to queries and keys only (values read
 the raw tokens), and a pixel-shuffle head over a per-view bicubic residual.
+Each stage's two LayerNorms are K13 (``ops.layer_norm``), the first with
+the add of the position code folded in.
 Submodule and parameter names follow the flax scopes
 (``_SpaTrans_2._MHA_0.Dense_4``, ``_SpaTrans_0.embed``), so ``bridge`` maps
 the JAX param tree onto this one.
@@ -44,7 +46,7 @@ from lfsr_tpu_torch.models.common import Conv, LayerNorm, lrelu, pixel_shuffle
 from lfsr_tpu_torch.models.epit import dense
 from lfsr_tpu_torch.models.losses import l1
 from lfsr_tpu_torch.models.registry import register_model
-from lfsr_tpu_torch.ops.cross_scan import layer_norm_fast
+from lfsr_tpu_torch.ops.layer_norm import layer_norm
 from lfsr_tpu_torch.ops.layout import sai_to_views, views_to_sai
 from lfsr_tpu_torch.ops.local_attention import local_window_mha
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
@@ -110,12 +112,12 @@ class _MHA(nn.Module):
         self.Dense_4 = lin(dim, 2 * dim)
         self.Dense_5 = lin(2 * dim, dim)
 
-    def _ln(self, ln: LayerNorm, x):
-        return layer_norm_fast(x, ln.weight, ln.bias).to(self.dtype)
+    def _ln(self, ln: LayerNorm, x, add=None):
+        return layer_norm(x, ln.weight, ln.bias, add, self.dtype)
 
     def forward(self, tok, pe, attend, span: str):
         dt = self.dtype
-        tn = self._ln(self.LayerNorm_0, tok + pe)
+        tn = self._ln(self.LayerNorm_0, tok, pe)
         q, k = dense(self.Dense_0, tn, dt), dense(self.Dense_1, tn, dt)
         v = dense(self.Dense_2, tok, dt)
         with trace.span(span):

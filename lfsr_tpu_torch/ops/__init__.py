@@ -14,8 +14,12 @@ K11's ``launches/K11/tap`` and ``launches/K11/once`` between its two
 roundings. K12 (LFT's banded spatial attention, ``local_window_mha``)
 counts ``launches/K12``, split as ``launches/K12/mma`` (bfloat16, tensor
 cores) and ``launches/K12/fma`` (float32, CUDA cores), and runs inside
-``_cuda.PlainVJP`` when a gradient is wanted. K11 and K12 replace no TPU
-kernel: JAX runs their ops as XLA ops.
+``_cuda.PlainVJP`` when a gradient is wanted. K13 (LFT's and EPIT's
+LayerNorms, ``layer_norm``) folds the add of a position code before the
+LayerNorm into the same kernel; it counts ``launches/K13``, and
+``launches/K13/code`` for the launches that fold in an addend (8 of LFT's
+16 a forward), and runs inside ``_cuda.PlainVJP`` when a gradient is wanted.
+K11, K12 and K13 replace no TPU kernel: JAX runs their ops as XLA ops.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
 from lfsr_tpu_torch.ops.depthwise import depthwise_conv
 from lfsr_tpu_torch.ops.head import hlfr_tail
+from lfsr_tpu_torch.ops.layer_norm import layer_norm
 from lfsr_tpu_torch.ops.local_attention import local_window_mha
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
@@ -88,6 +93,10 @@ KERNELS = {
     "K12 local_window_mha": (
         local_window_mha, "lfsr_tpu_torch/csrc/local_attention.cu",
         "none: JAX runs local_window_mha (lfsr_tpu/ops/local_attention.py) as XLA ops",
+    ),
+    "K13 layer_norm": (
+        layer_norm, "lfsr_tpu_torch/csrc/layer_norm.cu",
+        "none: JAX runs flax's LayerNorm (and the add of the position code before it) as XLA ops",
     ),
 }
 

@@ -97,6 +97,9 @@ _SIGNATURES = {
     # tensor cores, float32 on the CUDA cores)
     "lfsr_local_mha_mma": [_P] * 4 + [_I] * 7 + [_F, _P],
     "lfsr_local_mha": [_P] * 4 + [_I] * 7 + [_F, _P],
+    # x, add (or null), gamma, beta, out, rows, C, period, eps, x dtype, add
+    # dtype (-1: no addend), out dtype, stream (K13)
+    "lfsr_layer_norm": [_P] * 5 + [_S] + [_I] * 2 + [_F] + [_I] * 3 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

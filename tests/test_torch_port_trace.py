@@ -238,7 +238,9 @@ def test_lft_forward_records_its_blocks_and_attentions():
     """LFT at its registered width on the CPU (the wrappers run their
     twins): each of the 4 blocks' angular and spatial stages once, each
     with one attention span, K8 inside the angular one and K12 inside the
-    spatial one (their launches, counted on the card, are the GPU tests')."""
+    spatial one, and the stages' two LayerNorms each (K13, 16 in all)
+    directly inside them (their launches, counted on the card, are the GPU
+    tests')."""
     cfg = Config(model_name="LFT", compute_dtype="float32")
     m = get_model(cfg, device="cpu")
     m.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
@@ -249,11 +251,16 @@ def test_lft_forward_records_its_blocks_and_attentions():
             y = m(x)
     assert y.shape == (1, 160, 160, 1)
     want = {"model.input": 1, "model.stem": 1, "model.ang": 4, "model.ang.attn": 4,
-            "model.spa": 4, "model.spa.attn": 4, "model.output": 1, "K8": 4, "K12": 4}
+            "model.spa": 4, "model.spa.attn": 4, "model.output": 1, "K8": 4, "K12": 4,
+            "K13": 16}
     assert _calls() == want
     assert _lfsr_events(prof) == {trace.PREFIX + k for k in want}
+    k13_stages = []
     for r in trace.records():
         if r.name in ("K8", "K12"):
             stage = "model.ang" if r.name == "K8" else "model.spa"
             assert _ancestors(r) == [stage + ".attn", stage]
+        if r.name == "K13":
+            k13_stages += _ancestors(r)
+    assert sorted(k13_stages) == ["model.ang"] * 8 + ["model.spa"] * 8
     assert trace.summary()["counts"] == {}  # no host data copied, nothing launched on the CPU

@@ -23,6 +23,8 @@ from lfsr_tpu_torch import bridge, trace
 from lfsr_tpu_torch.models import lfmambax as tlfm
 from lfsr_tpu_torch.ops import block
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(7)
 BLOCK_BF16_TOL = 2e-2
 

@@ -40,6 +40,8 @@ from lfsr_tpu_torch.train.trainer import (
     Trainer, latest_checkpoint, restore_checkpoint, save_checkpoint,
 )
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = {"channels": 16, "d_state": 4, "phases": [[2, 0.25], [1, None]]}
 FLAGS = ["--compute_dtype", "float32", "--batch_size", "2", "--epoch", "2",

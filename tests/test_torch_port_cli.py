@@ -14,6 +14,8 @@ import pytest
 from lfsr_tpu import cli as jcli
 from lfsr_tpu_torch import cli
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ARGVS = [
     [],
     ["--task", "RE", "--angRes", "2", "--angRes_out", "5", "--scale_factor", "2",

@@ -12,6 +12,8 @@ import pytest
 from lfsr_tpu.config import Config as JConfig
 from lfsr_tpu_torch.config import Config
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 
 def _default(f):
     if f.default_factory is not dataclasses.MISSING:

@@ -56,6 +56,8 @@ from lfsr_tpu_torch.ops import (
 )
 from lfsr_tpu_torch.ops.block import LN_MSL_MIN_PIXELS
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}

@@ -32,6 +32,8 @@ import torch
 from lfsr_tpu.ops import pallas_scan as jps
 from lfsr_tpu_torch.ops import _cuda, scan
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 CSRC = Path(scan.__file__).resolve().parents[1] / "csrc"
 f32 = np.float32
 LOG2E = f32(1.4426950408889634)

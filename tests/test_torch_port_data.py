@@ -21,6 +21,8 @@ from lfsr_tpu.data import datasets as jdata
 from lfsr_tpu.data.generate import _write_h5
 from lfsr_tpu_torch.data import datasets as tdata
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 ANG, S = 5, 4
 # stems whose order as .h5 names ("b.h5" < "b.k.h5") differs from their

@@ -33,6 +33,8 @@ from lfsr_tpu_torch.models import common
 from lfsr_tpu_torch.models.lfmambax import LFMambaX
 from lfsr_tpu_torch.ops import _cuda, depthwise as dw
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 # flax's bf16 grouped conv on the CPU and torch's round the float32 sum once
 # each, in their own order: within 2 bf16 ulps of the output's scale
 ONCE_BF16_TOL = 2.0**-7

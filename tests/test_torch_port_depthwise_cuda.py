@@ -29,6 +29,8 @@ from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.ops import depthwise as dw
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 # the flagship's maps: LR mosaics of a whole-scene dispatch (Synth, Real),

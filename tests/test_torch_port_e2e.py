@@ -49,6 +49,8 @@ from lfsr_tpu_torch.tools.bmp import decode_bmp, parse_header
 from lfsr_tpu_torch.train.evaluate import evaluate_sets
 from lfsr_tpu_torch.train.trainer import load_params
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 ANG, S = 5, 4
 SMALL = {"channels": 16, "d_state": 4, "phases": [[2, 0.25], [1, None]]}

@@ -27,6 +27,8 @@ from lfsr_tpu.tools import efficiency as jeff
 from lfsr_tpu_torch.config import Config
 from lfsr_tpu_torch.tools import efficiency as eff
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 CASES = [(dict(compute_dtype="float32", model_kwargs=SMALL), (1, 40, 40, 1)),
          (dict(compute_dtype="float32", model_kwargs=SMALL), (2, 48, 32, 1)),

@@ -40,6 +40,8 @@ from lfsr_tpu_torch.models.registry import get_model, whole_scene_default
 from lfsr_tpu_torch.ops import masked_attention
 from lfsr_tpu_torch.train import evaluate as teval
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ONE_BLOCK = {"n_blocks": 1}
 
 

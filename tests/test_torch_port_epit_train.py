@@ -27,6 +27,8 @@ from lfsr_tpu.train.trainer import make_optimizer
 from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.train.trainer import _TRAIN_FLAG_MODELS, Draws, Trainer
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 CFG = Config(model_name="EPIT", compute_dtype="float32", batch_size=2, augment=False,
              use_masked_pretrain=False, lr=1e-3, epochs=4, warmup_epochs=0,
              model_kwargs={"n_blocks": 1})

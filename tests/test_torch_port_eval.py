@@ -22,18 +22,9 @@ from lfsr_tpu_torch.data.datasets import TestScene
 from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.train import evaluate as teval
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The chunked scans are thousands of small ops: on one intra-op thread
-    they spend no time in thread barriers, also when the suite's workers
-    share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(**kw):

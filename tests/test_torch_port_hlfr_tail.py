@@ -24,6 +24,8 @@ from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.models.lfmambax import fold_out_conv
 from lfsr_tpu_torch.ops import head
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture
 def tail_interpret():

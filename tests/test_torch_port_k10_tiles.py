@@ -29,6 +29,8 @@ from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.models.lfmambax import fold_out_conv
 from lfsr_tpu_torch.ops import _cuda, head
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 MMA_WARPS, TAPS, NT = 12, 36, 5  # tail_mma_kernel: warps, W36's columns, its n-tiles
 SMEM_LIMIT = 232_448  # bytes a block may use
 SIZES = [(1, 1), (16, 30), (17, 31), (37, 53), (160, 160), (1440, 1440), (1280, 1760)]

@@ -29,6 +29,8 @@ import torch
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, cross_scan
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 MAPS = [(17, 23), (160, 160), (640, 880), (720, 720)]
 THREADS = 256  # gather_tile::kThreads
 

@@ -35,6 +35,8 @@ from lfsr_tpu_torch import bridge
 from lfsr_tpu_torch.models import lfmambax as tlfm
 from lfsr_tpu_torch.ops import _cuda, block
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(12)
 SHAPES = [(2, 16, 24), (1, 16, 16)]  # non-square; square but below the gate
 SHAPE_IDS = ["2x16x24", "1x16x16"]

@@ -7,8 +7,12 @@ for bfloat16 with a head dim of 16, 32 or 64 and its CUDA-core kernel
 otherwise. The kernels themselves run only on the card
 (tests/test_torch_port_cuda.py); here ``_cuda``'s device checks and its
 ``launch`` are replaced by recorders, so the wrappers' planning runs on CPU
-tensors and the tests read what they would launch.
+tensors and the tests read what they would launch. The last test holds
+every port test file to the shared one-thread fixture of ``_torch_port``.
 """
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +20,8 @@ import torch
 
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, masked_attention as ma, scan
+
+from _torch_port import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -157,3 +163,17 @@ def test_k8_refuses_what_neither_kernel_takes(launches):
         ma.masked_mha_fused(q, q, q, torch.zeros(40, 40), 8)
     assert not launches
     np.testing.assert_equal(ma.MMA_HEAD_DIMS, (16, 32, 64))
+
+
+def test_every_port_test_file_takes_the_shared_one_thread_fixture():
+    """Each tests/test_torch_port_*.py imports ``one_torch_thread`` from
+    ``_torch_port`` and defines no copy of its own, and the rule holds here."""
+    files = sorted(Path(__file__).parent.glob("test_torch_port_*.py"))
+    assert files
+    for f in files:
+        tree = ast.parse(f.read_text())
+        assert any(isinstance(n, ast.ImportFrom) and n.module == "_torch_port"
+                   and [a.name for a in n.names] == ["one_torch_thread"] for n in tree.body), f.name
+        assert not any(isinstance(n, ast.FunctionDef) and n.name == "one_torch_thread"
+                       for n in ast.walk(tree)), f.name
+    assert torch.get_num_threads() == 1

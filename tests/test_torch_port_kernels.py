@@ -26,6 +26,8 @@ from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.models import lfmambax as tlfm
 from lfsr_tpu_torch.ops import block, cross_scan, head, scan, selective_scan, window_attention
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(3)
 
 

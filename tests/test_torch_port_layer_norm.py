@@ -29,6 +29,8 @@ from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.ops.cross_scan import layer_norm_fast
 from lfsr_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 BF16, F32 = torch.bfloat16, torch.float32
 
 

@@ -29,6 +29,8 @@ from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda
 from lfsr_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 BF16, F32 = torch.bfloat16, torch.float32

@@ -53,6 +53,8 @@ from portbench.reference import lft as ref
 from portbench.reference import train as ref_train
 from portbench.reference.common import Prec
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ONE_BLOCK = {"n_blocks": 1}
 X = np.random.default_rng(5).random((1, 40, 40, 1)).astype(np.float32)
 

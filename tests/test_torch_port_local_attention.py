@@ -25,6 +25,8 @@ from lfsr_tpu.ops.local_attention import local_window_mha as jax_local_window_mh
 from lfsr_tpu_torch.models.epit import _band_mask
 from lfsr_tpu_torch.ops import local_attention as la
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 # (B, h, w, heads, hd, k_r, k_c)
 CASES = [
     (2, 6, 10, 8, 16, 5, 5),

@@ -27,6 +27,8 @@ import torch
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import local_attention as la
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.gpu
 
 # (B, h, w, heads, hd, k_r, k_c): the cell's call, then the edge geometries

@@ -23,6 +23,8 @@ from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.models import epit
 from lfsr_tpu_torch.ops import masked_attention as ma
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 
 def _band(L, width=11):
     i = np.arange(L)

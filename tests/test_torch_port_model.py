@@ -29,6 +29,8 @@ from lfsr_tpu.ops import pallas_layout as jpl
 from lfsr_tpu_torch.bridge import init_params, param_count, state_dict_from_flax
 from lfsr_tpu_torch.models.registry import get_model
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

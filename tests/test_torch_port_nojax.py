@@ -26,6 +26,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 CODE = r"""

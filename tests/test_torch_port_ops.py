@@ -20,6 +20,8 @@ from lfsr_tpu_torch.ops import metrics as tmet
 from lfsr_tpu_torch.ops import tiling as tt
 from lfsr_tpu_torch.ops.resize import interpolate as t_interpolate
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(7)
 
 

@@ -28,6 +28,8 @@ import torch
 from lfsr_tpu.ops import pallas_scan as jps
 from lfsr_tpu_torch.ops import scan
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 B, DI, N, R = 2, 8, 4, 2
 TC = scan.STATE_SPACING
 JAX_CHUNK = 16

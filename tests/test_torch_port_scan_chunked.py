@@ -29,16 +29,7 @@ from lfsr_tpu.ops import selective_scan as jss
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import scan, selective_scan
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The chunked scans are thousands of small ops: on one intra-op thread
-    they spend no time in thread barriers, also when the suite's workers
-    share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_port import one_torch_thread  # noqa: F401
 
 
 def _rn(rng, *shape, s=1.0):

@@ -45,19 +45,10 @@ from lfsr_tpu_torch.ops import scan
 from lfsr_tpu_torch.train.evaluate import evaluate_sets
 from lfsr_tpu_torch.train.trainer import Trainer
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 F32_TOL, BF16_TOL = 2e-5, 2e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The chunked scans are thousands of small ops: on one intra-op thread
-    they spend no time in thread barriers, also when the suite's workers
-    share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -25,6 +25,8 @@ from lfsr_tpu_torch.data.datasets import TestScene
 from lfsr_tpu_torch.inference import infer_submission
 from lfsr_tpu_torch.ops.color import views_to_rgb_uint8
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 ANG, S = 5, 4
 NTIRE = {"Synth": (125, 125), "Real": (108, 156)}  # LR view (h0, w0)

@@ -23,6 +23,8 @@ from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.train.evaluate import sr_views
 from lfsr_tpu_torch.train.trainer import Trainer
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 PHASES = ((2, 0.25), (1, None))  # 3 blocks, window attention after the first phase
 BLOCKS, ATTN = 3, 1
 CFG = Config(compute_dtype="float32",

@@ -27,6 +27,8 @@ from lfsr_tpu_torch.models import losses
 from lfsr_tpu_torch.models.registry import get_loss
 from lfsr_tpu_torch.ops import block, cross_scan, window_attention
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(11)
 
 

@@ -30,6 +30,8 @@ from lfsr_tpu_torch.models.lfmambax import dropout
 from lfsr_tpu_torch.models.registry import get_model
 from lfsr_tpu_torch.train import masking, optim
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 ANG = 5
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 

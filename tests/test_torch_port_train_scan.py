@@ -20,6 +20,8 @@ import torch
 from lfsr_tpu.ops import pallas_scan as jps
 from lfsr_tpu_torch.ops import scan
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 B, L, DI, N, R, CHUNK = 2, 512, 8, 4, 2, 16
 SPACING = CHUNK * jps._pick_inner(L // CHUNK, max_inner=16)
 

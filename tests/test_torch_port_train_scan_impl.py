@@ -34,19 +34,10 @@ from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.ops import scan
 from lfsr_tpu_torch.train.trainer import Draws, Trainer
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 SPE = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The chunked scans are thousands of small ops: on one intra-op thread
-    they spend no time in thread barriers, also when the suite's workers
-    share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(impl):

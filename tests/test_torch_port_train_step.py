@@ -32,6 +32,8 @@ from lfsr_tpu.train.trainer import make_optimizer
 from lfsr_tpu_torch.bridge import state_dict_from_flax
 from lfsr_tpu_torch.train.trainer import Draws, Trainer
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 SMALL = {"channels": 16, "d_state": 4, "phases": ((2, 0.25), (1, None))}
 CFG = Config(compute_dtype="float32", batch_size=2, augment=False, use_masked_pretrain=False,
              lr=1e-3, epochs=4, warmup_epochs=0, model_kwargs=SMALL)

@@ -33,6 +33,8 @@ from lfsr_tpu.ops import pallas_attention as jpa
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops import _cuda, window_attention as wa
 
+from _torch_port import one_torch_thread  # noqa: F401
+
 f32 = np.float32
 WS, HEADS, T = 8, 4, 64
 

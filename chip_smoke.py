@@ -55,7 +55,10 @@ Phases (any failure exits non-zero):
    ([400, 1024, 128] + the embedded code [1, 1024, 128] of the compute
    dtype) and EPIT's tiled call ([320, 160, 128], no code), beside one
    ``F.layer_norm`` of x alone (the library yardstick, used nowhere in the
-   port),
+   port); K14 (the Mamba's causal conv + SiLU, xs the first half of
+   in_proj's output) at the train, tiled, Synth and Real scan shapes, held
+   bit for bit to the chain, and which of its lanes it took (16 bytes at
+   the flagship's Di 80),
    and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
    and K7's (bf16: the tensor-core ones), of K4's (every flagship call,
    bf16 and float32: the tile kernel). K1, K2,
@@ -75,7 +78,7 @@ Phases (any failure exits non-zero):
    AdamW) from the seeded init on 32 synthetic SAI-160 patch pairs; 2
    untimed warm-up steps, then ``run_epoch`` of 4 steps: launch counts per
    step (K2/K3/K4/K5/K7 12, K6 2, K10 1, K1 0, K11 13, its gradient the
-   plain chain's; every K5 and K7 launch on
+   plain chain's, K14 0; every K5 and K7 launch on
    its tensor-core kernel, every K4 launch of every phase, the float32
    gradient checks too, on its tile kernel), finite loss/PSNR/SSIM,
    ms/step, steps/s, peak memory. A batch holding a NaN must leave the
@@ -93,7 +96,7 @@ Phases (any failure exits non-zero):
 5. Whole-scene eval, ``Config()`` defaults (the flagship's default path):
    4 scenes at the NTIRE Synth geometry (500^2 HR) and 4 at the Real one
    (432x624 HR), one dispatch each: launch counts per dispatch (K7 12 on
-   both, K10 once, K11 13), finite SR and metrics, ms/scene and peak
+   both, K10 once, K11 13, K14 12), finite SR and metrics, ms/scene and peak
    memory; one scene per geometry against the plain twins. Then the same
    8 scenes under ``Config(model_kwargs={'scan_impl': impl})`` for impl in
    ('gated', 'fused'), with the same seeded parameters: K9b or K9c 12 per
@@ -191,17 +194,17 @@ GRAD_BATCH = 4
 
 # launches per flagship forward (12 blocks, window attention after 2 phases,
 # the HLFR tail once, the 13 depthwise convs outside the blocks: 11 "tap", 2
-# "once")
+# "once"; the Mamba's conv + SiLU once a block)
 PER_FORWARD = {"K1 selective_scan_proj": 12, "K4 cross_scan_gather": 12,
                "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
-               "K10 hlfr_tail": 1, "K11 depthwise_conv": 13}
+               "K10 hlfr_tail": 1, "K11 depthwise_conv": 13, "K14 conv_silu_fused": 12}
 # launches per train step: K2 in place of K1 forward, K3 in backward (K4-K7,
 # K10 and K11 have no backward kernel: their gradient is the plain twin's, as
-# on the TPU)
+# on the TPU; K14 none: under autograd the blocks run the conv + SiLU chain)
 PER_STEP = {"K1 selective_scan_proj": 0, "K2 selective_scan_proj_states": 12,
             "K3 selective_scan_proj_bwd": 12, "K4 cross_scan_gather": 12,
             "K5 cross_scan_scatter": 12, "K6 window_mha_fused": 2, "K7 ln_msl": 12,
-            "K10 hlfr_tail": 1, "K11 depthwise_conv": 13}
+            "K10 hlfr_tail": 1, "K11 depthwise_conv": 13, "K14 conv_silu_fused": 0}
 TRAIN_PATCHES, TRAIN_STEPS, TRAIN_WARMUP = 32, 4, 2
 # EPIT: K8 at both EPI passes of each of its 5 AltFilters, forward only (its
 # gradient is the plain twin's, as on the TPU)
@@ -228,7 +231,7 @@ N24_DIMS = {"Di": 90, "N": 24, "R": 5}
 
 # the entry-point phase: the flagship's kernels, and the gate's numbers at
 # the official input (the JAX package's CPU count, tests/test_torch_port_efficiency.py)
-ENTRY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11")
+ENTRY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K14")
 GATE_PARAMS, GATE_MACS = 693_998, 18_118_185_344
 # the gate's bench: 5 warm-up calls and 2 x 50 timed ones (tools/efficiency.latency_bench)
 GATE_FORWARDS = 5 + 2 * 50
@@ -242,7 +245,8 @@ TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 # what each kernel path is, in the log
 PATH_NAMES = {"mma": "tensor-core", "fma": "CUDA-core", "tile": "tile", "warp": "one-warp",
-              "tap": "tap-rounding", "once": "once-rounding"}
+              "tap": "tap-rounding", "once": "once-rounding", "vec": "16-byte-lane",
+              "elem": "one-channel-lane"}
 
 
 def log(msg: str) -> None:
@@ -341,6 +345,10 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
             return (xz[..., :Di], xz[..., Di:], rn(4, Di, s=0.3), rn(Di, s=0.1),
                     rn(Di, R + 2 * N, s=Di**-0.5), rn(R, Di, s=0.3), rn(Di, s=0.1), A,
                     torch.ones(Di, device=dev))
+        if name == "K14":  # xs, in_proj's output's first half; wconv [4, Di] as the
+            # model views conv1d's weight [Di, 1, 4]; bconv
+            xz = rn(B, L, 2 * Di, dt=dtype)
+            return xz[..., :Di], rn(Di, 1, 4, s=0.5)[:, 0, :].t(), rn(Di, s=0.5)
         if name == "K4":
             return rn(B, H, W, C, dt=dtype), 1 + rn(C, s=0.2), rn(C, s=0.1)
         if name == "K5":
@@ -374,13 +382,14 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
         # by 8 and rounded up to a multiple of 8 (720x720 Synth, 640x880 Real)
         return [4, *(5 * (-(-(side // 4 + 16) // 8) * 8) for side in hr)]
 
-    main = (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10")),
+    main = (("train", (8, 160, 160), ("K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K10",
+                                      "K14")),
             ("tiled", (2, 160, 160), ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c",
-                                      "K10", "K11")),
+                                      "K10", "K11", "K14")),
             ("synth", mosaic(SYNTH_HR),
-             ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10", "K11")),
+             ("K1", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10", "K11", "K14")),
             ("real", mosaic(REAL_HR), ("K1", "K4", "K5", "K6", "K7", "K9b", "K9c", "K10",
-                                       "K11")))
+                                       "K11", "K14")))
     for where, shape, names in () if n24_only else main:
         for name in names:
             if name == "K11":
@@ -490,6 +499,9 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
         w, bias = args[1], args[4]
         kk = w.shape[-2] * w.shape[-1]
         return nbytes, 0.0, float(x.numel() * (2 * kk - 1 + (bias is not None)))
+    if name == "K14":  # per output: K products, K - 1 adds, the bias add; SiLU's negation,
+        # exp, add and division
+        return nbytes, 0.0, float(x.numel() * (2 * args[1].shape[0] + 4))
     raise KeyError(name)
 
 
@@ -543,6 +555,18 @@ def conv2d_call(x, w, dilation, rounding, bias):
                                               groups=C)
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 or bf16 tensor's raw bits (a signed zero differs from +0)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def k14_against_twin(got, want, where: str) -> None:
+    """K14's own check beside the shared bound: the chain bit for bit."""
+    same = torch.equal(bits(got), bits(want))
+    log(f"[kernels] K14 {str(got.dtype)[6:]:8s} {where}: equals the chain bit for bit: {same}")
+    assert same, f"K14 {where}: differs from the chain"
+
+
 def k11_against_twin(got, want, args, where: str) -> None:
     """K11's own check beside the shared bound: "tap" equals the chain bit
     for bit; "once" lies within one ulp of the dtype of F.conv2d's, plus
@@ -550,7 +574,6 @@ def k11_against_twin(got, want, args, where: str) -> None:
     sum of |x w| (KK - 1 adds a side, each within 2^-24 of it)."""
     from lfsr_tpu_torch.ops import depthwise as dw
 
-    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
     if args[3] == "tap":
         same = torch.equal(bits(got), bits(want))
         log(f"[kernels] K11 {str(got.dtype)[6:]:8s} {where}: equals the chain bit for bit: {same}")
@@ -638,6 +661,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K11": (dw.depthwise_conv, dw.depthwise_plain),
         "K12": (la.local_window_mha, la.local_window_plain),
         "K13": (layer_norm, layer_norm_plain),
+        "K14": (scan.conv_silu_fused, scan.conv_silu_plain),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
@@ -661,6 +685,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K8": lambda a: ma.kernel_path(a[0].dtype, a[0].shape[-1] // a[4]),
         "K11": lambda a: a[3],  # its rounding
         "K12": lambda a: la.kernel_path(a[0].dtype),
+        "K14": lambda a: scan.conv_silu_path(a[0], a[0].stride(1)),
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
@@ -674,9 +699,10 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
             if name in path_of:  # which of its two kernels took the call
                 counts, path = trace.counts(f"launches/{name}/"), path_of[name](args)
                 assert counts == {k: v + (k == path) for k, v in before.items()}, (name, counts)
-                # the flagship's K4 takes its tile kernel; K6, and K5 and K7
-                # in bf16, take the tensor cores
-                assert (path == "tile" if name == "K4" else path == "mma" or name in ("K8", "K11")
+                # the flagship's K4 takes its tile kernel, K14 its 16-byte
+                # lanes; K6, and K5 and K7 in bf16, take the tensor cores
+                assert (path == "tile" if name == "K4" else path == "vec" if name == "K14"
+                        else path == "mma" or name in ("K8", "K11")
                         or (name != "K6" and dtype == torch.float32)), (name, dtype, path)
                 log(f"[kernels] {name} {str(dtype)[6:]:8s} {where}: the {PATH_NAMES[path]} "
                     f"kernel ({path})" + (f", x {str(args[0].dtype)[6:]}" if name == "K7" else ""))
@@ -691,6 +717,8 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
             want, plain_ms = timed_call(lambda: plain(*args))
             if name == "K11":  # "tap": the chain bit for bit; "once": within an ulp of cuDNN's
                 k11_against_twin(got, want, args, where)
+            if name == "K14":
+                k14_against_twin(got, want, where)
             # each output against its own scale (K3's dA sums over L, its du
             # does not); float32 outputs (K2's states, all of K3's) from
             # bf16 inputs are computed in float32 on both sides, K10's from
@@ -822,7 +850,8 @@ def per_forward(impl: str = "pallas") -> dict:
     in K1's place."""
     if impl == "pallas":
         return PER_FORWARD
-    out = {k: n for k, n in PER_FORWARD.items() if k != "K1 selective_scan_proj"}
+    drop = ("K1", "K14") if impl == "fused" else ("K1",)  # K9c takes the conv + SiLU too
+    out = {k: n for k, n in PER_FORWARD.items() if k.split()[0] not in drop}
     return {**out, SCAN_IMPL_KERNELS[impl]: PER_FORWARD["K1 selective_scan_proj"]}
 
 
@@ -877,7 +906,8 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     launch by the kernel ``k8_kernel`` names; for ``cfg``'s LFT, every K8
     launch (head dim 8) on its CUDA-core kernel and every K12 launch on the
     kernel of ``cfg``'s compute dtype; K13's launches with the code's add
-    ``K13_CODE_SHARE`` of its launches (half of LFT's, none of EPIT's)."""
+    ``K13_CODE_SHARE`` of its launches (half of LFT's, none of EPIT's);
+    every K14 launch (the flagship's Di 80) on its 16-byte lanes."""
     from lfsr_tpu_torch import trace
     from lfsr_tpu_torch.ops import local_attention, masked_attention
 
@@ -889,6 +919,10 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     log(f"[{what}] launches {counts}")
     k4 = counts["K4 cross_scan_gather"]
     assert k4_paths == {"tile": k4, "warp": 0}, (what, k4_paths, k4)
+    k14, k14_paths = counts["K14 conv_silu_fused"], trace.counts("launches/K14/")
+    assert k14_paths == {"vec": k14, "elem": 0}, (what, k14_paths, k14)
+    if k14:
+        log(f"[{what}] K14 launches by kernel {k14_paths}: all {k14} on 16-byte lanes")
     if k4:
         log(f"[{what}] K4 launches by kernel {k4_paths}: all {k4} on the tile kernel")
     bf16 = cfg is None or cfg.compute_dtype == "bfloat16"
@@ -1670,7 +1704,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10",
-                          "K11"),
+                          "K11", "K14"),
              "EPIT": ("K8", "K13"), "LFT": ("K8", "K12", "K13"), None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)

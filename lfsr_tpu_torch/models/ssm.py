@@ -1,9 +1,10 @@
 """Mamba block (port of lfsr_tpu/models/ssm.py), following the TPU branches:
 
   in_proj (D -> 2*Di) -> [x | z]
-  'pallas' (default): causal depthwise conv1d + SiLU as shifted multiply-adds,
-     x_proj (Di -> R + 2N) -> dbc, K1 (dt projection + softplus + scan +
-     D skip), y = scan * silu(z) in float32 -> out_proj (Di -> D)
+  'pallas' (default): causal depthwise conv1d + SiLU (the JAX form's shifted
+     multiply-adds; with no gradient wanted K14, the same roundings in one
+     kernel), x_proj (Di -> R + 2N) -> dbc, K1 (dt projection + softplus +
+     scan + D skip), y = scan * silu(z) in float32 -> out_proj (Di -> D)
   'gated': the same conv and x_proj, dt_raw = dbc[..., :R] @ Wdt + bdt in the
      compute dtype, then K9b (scan + D skip + silu(z) gate + out_proj), whose
      output is the block's
@@ -27,8 +28,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lfsr_tpu_torch.ops._cuda import wants_grad
 from lfsr_tpu_torch.ops.scan import (
-    conv_silu, mamba_inner_fused, mamba_inner_plain, scan_gated_fused, selective_scan_proj,
+    conv_silu, conv_silu_fused, mamba_inner_fused, mamba_inner_plain, scan_gated_fused,
+    selective_scan_proj,
 )
 
 SCAN_IMPLS = ("pallas", "gated", "fused", "assoc")
@@ -71,7 +74,13 @@ class Mamba(nn.Module):
                       self.x_proj.weight.t().contiguous(), w_dt.contiguous(),
                       self.dt_proj.bias, A, self.D)
             return y.to(dt) @ w_out.to(dt)
-        xc = conv_silu(xs, wconv, self.conv1d.bias, dt)
+        if wants_grad(xs, wconv, self.conv1d.bias):
+            # under autograd the chain itself: K14 has no backward kernel, and
+            # recomputing the chain in a PlainVJP backward costs the host-bound
+            # train step more than the kernel's forward saves
+            xc = conv_silu(xs, wconv, self.conv1d.bias, dt)
+        else:
+            xc = conv_silu_fused(xs, wconv, self.conv1d.bias)  # K14; xs is in dt
         dbc = xc @ self.x_proj.weight.t().to(dt)
         if self.scan_impl == "gated":
             dt_raw = dbc[..., :R] @ w_dt.to(dt) + self.dt_proj.bias.to(dt)

@@ -19,7 +19,11 @@ LayerNorms, ``layer_norm``) folds the add of a position code before the
 LayerNorm into the same kernel; it counts ``launches/K13``, and
 ``launches/K13/code`` for the launches that fold in an addend (8 of LFT's
 16 a forward), and runs inside ``_cuda.PlainVJP`` when a gradient is wanted.
-K11, K12 and K13 replace no TPU kernel: JAX runs their ops as XLA ops.
+K14 (the Mamba's causal conv + SiLU, ``scan.conv_silu_fused``, 12 a flagship
+forward under ``'pallas'`` and ``'gated'``) counts ``launches/K14``, split as
+``launches/K14/vec`` (16-byte lanes of channels) and ``launches/K14/elem``
+(one channel a lane), and runs inside ``_cuda.PlainVJP`` when a gradient is
+wanted. K11-K14 replace no TPU kernel: JAX runs their ops as XLA ops.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from lfsr_tpu_torch.ops.layer_norm import layer_norm
 from lfsr_tpu_torch.ops.local_attention import local_window_mha
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused
 from lfsr_tpu_torch.ops.scan import (
-    mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
+    conv_silu_fused, mamba_inner_fused, scan_gated_fused, selective_scan_fused, selective_scan_proj,
     selective_scan_proj_bwd, selective_scan_proj_states,
 )
 from lfsr_tpu_torch.ops.window_attention import window_mha_fused
@@ -97,6 +101,10 @@ KERNELS = {
     "K13 layer_norm": (
         layer_norm, "lfsr_tpu_torch/csrc/layer_norm.cu",
         "none: JAX runs flax's LayerNorm (and the add of the position code before it) as XLA ops",
+    ),
+    "K14 conv_silu_fused": (
+        conv_silu_fused, "lfsr_tpu_torch/csrc/conv_silu.cu",
+        "none: JAX runs Mamba._conv_silu (lfsr_tpu/models/ssm.py) as XLA elementwise ops",
     ),
 }
 

@@ -100,6 +100,9 @@ _SIGNATURES = {
     # x, add (or null), gamma, beta, out, rows, C, period, eps, x dtype, add
     # dtype (-1: no addend), out dtype, stream (K13)
     "lfsr_layer_norm": [_P] * 5 + [_S] + [_I] * 2 + [_F] + [_I] * 3 + [_P],
+    # xs, its row stride, wconv, its two strides, bconv, xc, B, L, Di, K, run,
+    # lanes a CTA, runs a CTA, grid x, grid y, vec, dtype, stream (K14)
+    "lfsr_conv_silu": [_P, _S, _P, _S, _S, _P, _P] + [_I] * 11 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -255,20 +258,29 @@ def check(t: torch.Tensor, name: str, shape=None, dtype=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def row_stride(t: torch.Tensor, name: str, shape, dtype=None, device=None) -> int:
-    """Validate a [B, L, X] kernel operand whose rows may be spaced (a slice
-    of a wider tensor's last axis, as B and C of dbc or z of in_proj's
-    output): unit stride along X, batch stride L rows. Returns the row
-    stride in elements."""
-    _check_meta(t, name, shape, dtype, device)
-    B, L, X = shape
+def row_spacing(t: torch.Tensor) -> int | None:
+    """The row stride, in elements, of a [B, L, X] tensor whose rows are
+    unit-stride and evenly spaced (a contiguous tensor, or a slice of a
+    wider tensor's last axis, as B and C of dbc or z of in_proj's output:
+    batch stride L rows); None for any other layout."""
+    B, L, X = t.shape
     s0, s1, s2 = t.stride()
     if L == 1:
         s1 = s0 if B > 1 else X
     if (X > 1 and s2 != 1) or (B > 1 and s0 != L * s1) or s1 < X:
+        return None
+    return s1
+
+
+def row_stride(t: torch.Tensor, name: str, shape, dtype=None, device=None) -> int:
+    """Validate a [B, L, X] kernel operand whose rows may be spaced
+    (:func:`row_spacing`). Returns the row stride in elements."""
+    _check_meta(t, name, shape, dtype, device)
+    s = row_spacing(t)
+    if s is None:
         raise ValueError(f"{name}: rows must be unit-stride and evenly spaced, "
                          f"got strides {t.stride()}")
-    return s1
+    return s
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:

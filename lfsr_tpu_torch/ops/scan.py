@@ -1,6 +1,7 @@
 """K1 / K2 / K3 — the Mamba selective scan with the dt projection folded in;
 K9b / K9c — the scan with the Mamba epilogue, and the whole inner pipeline;
-K9a — the op-level scan with delta, B and C given.
+K9a — the op-level scan with delta, B and C given; K14 — the Mamba's causal
+conv + SiLU before them.
 
 Port of lfsr_tpu/ops/pallas_scan.py::selective_scan_proj and its custom_vjp
 (Pallas kernels ``_scan_proj_kernel`` K1, ``_scan_proj_states_kernel`` K2,
@@ -33,6 +34,11 @@ their own kernels: :func:`scan_gated_fused` (K9b, ``'gated'``:
 flat-lane variant, one function) is an op of the JAX package that no model
 calls; its gradient is that of the chunked scan, as JAX's custom_vjp.
 
+:func:`conv_silu_fused` (K14, csrc/conv_silu.cu) is :func:`conv_silu`'s
+chain (the causal depthwise conv1d, its bias and SiLU, as the JAX
+``Mamba._conv_silu``) in one kernel, bit for bit; no TPU kernel matches it.
+Its gradient is the chain's (``_cuda.PlainVJP``).
+
 The plain twins of K1, K9b and K9c scan as the JAX references do
 (:func:`scan_ref`): chunk by chunk (``selective_scan_chunked``, chunk 256,
 checkpointed) when ``L % 256 == 0 and L > 4096``, which every L of the
@@ -49,6 +55,8 @@ tests/test_pallas_scan.py:153-178).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +105,114 @@ def conv_silu(xs: torch.Tensor, wconv: torch.Tensor, bconv: torch.Tensor, dt) ->
     for k in range(1, K):
         acc = acc + xp[:, k : k + L] * w[k]
     return F.silu(bconv.to(dt) + acc)
+
+
+# --------------------------------------------------------------------------
+# K14: the causal conv + SiLU
+# --------------------------------------------------------------------------
+
+# csrc/conv_silu.cu's Shape: threads a CTA and the CTAs an SM holds, by dtype
+# (bf16: one CTA beside its 128 KB SiLU table); the taps it takes
+CONV_SILU_SHAPE = {torch.float32: (256, 2), torch.bfloat16: (512, 1)}
+CONV_SILU_TAPS = range(1, 9)
+CONV_SILU_PATHS = ("vec", "elem")  # 16-byte lanes of channels, or one channel a lane
+
+
+class ConvSiluPlan(NamedTuple):
+    vw: int          # channels a lane (a thread's share of a row)
+    lanes_cta: int   # lanes a CTA covers: a channel block
+    runs_cta: int    # runs a CTA
+    run: int         # positions a run
+    grid: tuple      # (CTAs over the runs, channel blocks)
+
+
+def conv_silu_plain(xs, wconv, bconv):
+    """K14's plain twin: :func:`conv_silu` in xs's dtype."""
+    return conv_silu(xs, wconv, bconv, xs.dtype)
+
+
+def check_conv_silu(xs, wconv, bconv) -> None:
+    """Raise ``ValueError`` unless K14 takes the call: xs [B, L, Di] float32
+    or bfloat16 with B, L, Di >= 1; wconv float32 [K, Di] with K in 1..8;
+    bconv float32 [Di]."""
+    if xs.dim() != 3 or xs.dtype not in (torch.float32, torch.bfloat16) or 0 in xs.shape:
+        raise ValueError(f"conv_silu: xs [B, L, Di] of float32 or bfloat16, none of them 0; got "
+                         f"{tuple(xs.shape)} {xs.dtype}")
+    Di = xs.shape[2]
+    if wconv.dim() != 2 or wconv.shape[1] != Di or wconv.shape[0] not in CONV_SILU_TAPS:
+        raise ValueError(f"conv_silu: wconv [K, {Di}] with K in 1..8; got {tuple(wconv.shape)}")
+    for name, t in (("wconv", wconv), ("bconv", bconv)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"conv_silu: {name} float32; got {t.dtype}")
+    if tuple(bconv.shape) != (Di,):
+        raise ValueError(f"conv_silu: bconv [{Di}]; got {tuple(bconv.shape)}")
+
+
+def conv_silu_path(xs: torch.Tensor, row_stride: int) -> str:
+    """K14's lanes for xs (rows ``row_stride`` elements apart): ``"vec"``,
+    16 bytes of channels a lane, where Di and the row stride are multiples
+    of it and xs is 16-byte aligned; else ``"elem"``, one channel a lane."""
+    vw = 16 // xs.element_size()
+    fits = xs.shape[2] % vw == 0 and row_stride % vw == 0 and xs.data_ptr() % 16 == 0
+    return "vec" if fits else "elem"
+
+
+def conv_silu_plan(B: int, L: int, Di: int, dtype, path: str, sms: int) -> ConvSiluPlan:
+    """K14's launch at xs [B, L, Di]: a CTA takes ``runs_cta`` runs of its
+    channel block's ``lanes_cta`` lanes, a run ``run`` consecutive positions
+    of one batch row. The run is the shortest that puts all B ceil(L / run)
+    runs in one wave of the CTAs (CONV_SILU_SHAPE) that each of ``sms`` SMs
+    holds (or a whole batch row a run, where B rows outnumber the wave's
+    runs)."""
+    threads, per_sm = CONV_SILU_SHAPE[dtype]
+    vw = 16 // dtype.itemsize if path == "vec" else 1
+    lanes = Di // vw
+    lanes_cta = min(lanes, threads)
+    blocks = -(-lanes // lanes_cta)
+    runs_cta = threads // lanes_cta
+    wave = max(1, sms * per_sm // blocks) * runs_cta  # runs in one wave
+    run = -(-B * L // wave)
+    while run < L and B * -(-L // run) > wave:
+        run += 1
+    run = min(run, L)
+    return ConvSiluPlan(vw, lanes_cta, runs_cta, run, (-(-B * -(-L // run) // runs_cta), blocks))
+
+
+def _conv_silu_fused(xs, wconv, bconv):
+    if _cuda.use_plain(xs):
+        return conv_silu_plain(xs, wconv, bconv)
+    dev = xs.device
+    B, L, Di = xs.shape
+    sx = _cuda.row_spacing(xs)
+    if sx is None:  # rows not evenly spaced: one copy
+        xs = xs.contiguous()
+        sx = Di
+    if wconv.device != dev:
+        raise ValueError(f"conv_silu: wconv on {wconv.device}, xs on {dev}")
+    _cuda.check(bconv, "bconv", device=dev)
+    out = torch.empty(B, L, Di, dtype=xs.dtype, device=dev)
+    path = conv_silu_path(xs, sx)
+    plan = conv_silu_plan(B, L, Di, xs.dtype, path, _cuda.sm_count(xs))
+    _cuda.launch("lfsr_conv_silu", xs.data_ptr(), sx, wconv.data_ptr(), *wconv.stride(),
+                 bconv.data_ptr(), out.data_ptr(), B, L, Di, wconv.shape[0], plan.run,
+                 plan.lanes_cta, plan.runs_cta, *plan.grid, int(path == "vec"),
+                 _cuda.DTYPE_CODES[xs.dtype], _cuda.stream_of(xs))
+    _cuda.launched("K14", path)
+    return out
+
+
+@_cuda.counted("K14", CONV_SILU_PATHS)
+def conv_silu_fused(xs, wconv, bconv):
+    """K14, the Mamba's entry for its causal conv + SiLU: xs [B, L, Di]
+    (rows may be spaced, as in_proj's output's first half), wconv [K, Di],
+    bconv [Di] -> xc [B, L, Di] in xs's dtype, :func:`conv_silu`'s chain bit
+    for bit (csrc/conv_silu.cu). The kernel on a CUDA tensor, the plain twin
+    on a CPU one; with a gradient wanted, the twin's gradient. Pass the
+    operands by position: the benchmark counts the ones it logs."""
+    check_conv_silu(xs, wconv, bconv)
+    if _cuda.wants_grad(xs, wconv, bconv):
+        return _cuda.PlainVJP.apply("K14", _conv_silu_fused, conv_silu_plain, xs, wconv, bconv)
+    return _conv_silu_fused(xs, wconv, bconv)
 
 
 def scan_ref(u, delta, A, Bc, Cc, D_skip=None):

@@ -106,12 +106,13 @@ def test_whole_scene_sr_views_records_every_stage(model, dispatches):
         "model.input": n, "model.ife": n, "model.block": BLOCKS * n,
         "model.block.ssm": BLOCKS * n, "model.window_attention": ATTN * n, "model.fusion": n,
         "model.hlfr": n, "model.output": n,
-        # the kernel wrappers: K1/K4/K5 in each block's SSM, K7 in each block
-        # (16 channels: ln_msl_takes holds), K6 after each attention phase,
-        # K10 once, K11 at the 13 depthwise convs outside the blocks (11 of
-        # dw_apply's, LSFL's two EPI convs)
+        # the kernel wrappers: K1/K4/K5 and K14 (the Mamba's conv + SiLU) in
+        # each block's SSM, K7 in each block (16 channels: ln_msl_takes
+        # holds), K6 after each attention phase, K10 once, K11 at the 13
+        # depthwise convs outside the blocks (11 of dw_apply's, LSFL's two
+        # EPI convs)
         "K1": BLOCKS * n, "K4": BLOCKS * n, "K5": BLOCKS * n, "K7": BLOCKS * n,
-        "K6": ATTN * n, "K10": n, "K11": 13 * n,
+        "K14": BLOCKS * n, "K6": ATTN * n, "K10": n, "K11": 13 * n,
         # the engine: one upload of the geometry group; the scene-count pad
         # and each call's view pad; each call's crop and the calls' join
         "eval.upload": 1, "eval.pad": 1 + n, "eval.forward": n, "eval.crop": n + 1,

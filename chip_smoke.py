@@ -7,6 +7,7 @@
     python3 chip_smoke.py --entry-only    # build + the flagship's kernels + the entry-point phase
     python3 chip_smoke.py --model EPIT    # build + K8 and K13 vs plain + EPIT's phases only
     python3 chip_smoke.py --model LFT     # build + K8, K12 and K13 vs plain + LFT's phases only
+    python3 chip_smoke.py --model LF_DET  # build + K15 vs plain + LF-DET's phases only
     python3 chip_smoke.py --scan-impl gated  # build + K9b vs plain + 'gated' whole-scene eval + train
     python3 chip_smoke.py --scan-impl fused  # build + K9c vs plain + 'fused' whole-scene eval + train
     python3 chip_smoke.py --d-state-24    # build + K1-K3, K9a-K9c at d_state 24 vs plain only
@@ -58,7 +59,16 @@ Phases (any failure exits non-zero):
    port); K14 (the Mamba's causal conv + SiLU, xs the first half of
    in_proj's output) at the train, tiled, Synth and Real scan shapes, held
    bit for bit to the chain, and which of its lanes it took (16 bytes at
-   the flagship's Di 80),
+   the flagship's Di 80); K15 (LF-DET's attention with no mask, 4 heads of
+   16, k and v the two halves of one projection) at the four sites of a
+   16-tile call (spatial q [400, 1024, 64] against k, v [400, 256, 64];
+   the MacPI windows [16384, 25, 64], [4096, 100, 64], [1936, 225, 64]),
+   also held to the float32 formula (bf16 within 2 bf16 ulps of its scale
+   and no farther from it than the bf16 twin; float32 within 1e-5), beside
+   the fastest of ``scaled_dot_product_attention``'s fused backends (flash,
+   memory-efficient, cuDNN) that takes the call (the library yardstick),
+   and which of its kernels took it (bf16: tensor cores; float32: CUDA
+   cores),
    and of K6's (every flagship call: the tensor-core one, bf16x3), of K5's
    and K7's (bf16: the tensor-core ones), of K4's (every flagship call,
    bf16 and float32: the tile kernel). K1, K2,
@@ -143,10 +153,19 @@ Phases (any failure exits non-zero):
    K12 launch of the bf16 phases on its tensor-core kernel, of the float32
    gradient check on its CUDA-core one; every K8 launch (head dim 8) on its
    CUDA-core one.
-9. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
+9. LF-DET (64 channels, 4 mix blocks, bf16, seeded init), its default
+   tiled ``evaluate_sets`` at the cell's 32 / 16 patches, 16 a call, of
+   one 512^2-HR scene (4 calls: K15 20 launches a call, K13 48, K11 20,
+   read after a count reset, nothing else) against the plain twins, and
+   its batch-8 train step (L1, augmentation, masking, DropPath, AdamW; the
+   same launches a step), the NaN-skip and one float32 step's gradients
+   kernels vs twins; every K15 launch of the bf16 phases on its
+   tensor-core kernel, of the float32 gradient check on its CUDA-core one;
+   every K11 launch "once" rounding.
+10. K9a's op: ``selective_scan_fused`` at the train scan shape [8, 25600,
    80], float32, forward and one backward of sum(y^2) on the kernel and on
    the plain twin: y and every gradient against the twin's.
-10. Prints the card, the kernels' JSON line, then the final result line.
+11. Prints the card, the kernels' JSON line, then the final result line.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -217,6 +236,15 @@ LFT_PER_FORWARD = {"K8 masked_mha_fused": 4, "K12 local_window_mha": 4, "K13 lay
 # of each model's K13 launches, the share that folds in a code
 K13_CODE_SHARE = {"LFT": 0.5, "EPIT": 0.0}
 LFT_PARAMS, LFT_TILES = 1_163_392, 16  # its parameters; tiles a call, as in lft.tiled_test
+# LF-DET: K15 at each of its 20 attentions (2 spatial blocks and 3 window
+# branches in each of 4 mix blocks), K13 at their 48 LayerNorms (the spatial
+# reduction's too), K11 at their 20 Mix-FFN depthwise convs ("once"), forward
+# only (the gradients are the plain twins')
+LF_DET_PER_FORWARD = {"K15 dense_mha": 20, "K13 layer_norm": 48, "K11 depthwise_conv": 20}
+LF_DET_PARAMS, LF_DET_HEADS = 1_686_668, 4
+# K15's sites in a 16-tile call of lfdet.tiled_test: (B, Lq, Lk), 64 channels
+LF_DET_SITES = {"lfdet-spa": (LFT_TILES * 25, 1024, 256), "lfdet-ws5": (LFT_TILES * 1024, 25, 25),
+                "lfdet-ws10": (LFT_TILES * 256, 100, 100), "lfdet-ws15": (LFT_TILES * 121, 225, 225)}
 # the flagship's opt-in scans: each takes K1's place, 12 per forward (in a
 # train step too, where K2 and K3 then do not run: the gradient is the twin's)
 SCAN_IMPL_KERNELS = {"gated": "K9b scan_gated_fused", "fused": "K9c mamba_inner_fused"}
@@ -302,7 +330,9 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
     channels, 8 heads, a zero mask); K12 at LFT's SpaTrans call (16 tiles x
     25 views of 32 x 32 tokens, 128 channels, 8 heads, 5 x 5); K13 at LFT's
     AngTrans and SpaTrans LayerNorms with their codes and at EPIT's tiled
-    one (x, gamma, beta, code or None, out dtype); K1,
+    one (x, gamma, beta, code or None, out dtype); K15 at LF-DET's four
+    sites (q, and k and v the two halves of one [B, Lk, 128] projection,
+    4 heads); K1,
     K2, K3 and K9a-K9c at d_state 24 ("v7-n24": [8, 25600, 90], dt rank 5;
     K9a with delta before softplus). ``only``: the kernels to yield (default
     all); ``n24_only``: the d_state 24 cases alone."""
@@ -420,6 +450,12 @@ def kernel_cases(dtype, g: torch.Generator, only=None, n24_only: bool = False):
             d = shape[-1]
             yield "K13", where, (rn(*shape, s=2.0, dt=dtype), 1 + rn(d, s=0.2), rn(d, s=0.1),
                                  code, dtype)
+    if (only is None or "K15" in only) and not n24_only:
+        for where, (B, Lq, Lk) in LF_DET_SITES.items():
+            kv = rn(B, Lk, 2 * C, s=1.5, dt=dtype)
+            yield "K15", where, (rn(B, Lq, C, s=1.5, dt=dtype), kv[..., :C], kv[..., C:],
+                                 LF_DET_HEADS)
+            del kv
     # d_state 24 (EfficientLFNetV7's default) at its widths (Di 90, dt rank
     # 5) on the batch-8 train step's scan length
     for name in N24_KERNELS:
@@ -502,6 +538,10 @@ def work(name: str, args, outs) -> tuple[int, float, float]:
     if name == "K14":  # per output: K products, K - 1 adds, the bias add; SiLU's negation,
         # exp, add and division
         return nbytes, 0.0, float(x.numel() * (2 * args[1].shape[0] + 4))
+    if name == "K15":  # q.k and p v per (query, key, head); one exp a score
+        B, Lq, D = x.shape
+        Lk = args[1].shape[1]
+        return nbytes, 4.0 * B * Lq * Lk * D, float(B * args[3] * Lq * Lk)
     raise KeyError(name)
 
 
@@ -532,6 +572,59 @@ def sdpa_call(q, k, v, mask, heads):
     qs, ks, vs, m = split(q), split(k), split(v), mask.to(q.dtype)
     run = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=m)
     return run, lambda o: o.transpose(1, 2).reshape(B, L, D)
+
+
+def sdpa_fastest(q, k, v, heads, want):
+    """K15's function as one ``scaled_dot_product_attention`` call on each
+    of its fused backends (flash, memory-efficient, cuDNN) that takes the
+    call: the library yardstick. Returns (the fastest one's ms or None, a
+    note naming each backend's ms and the fastest one's max|d| vs ``want``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, Lq, D = q.shape
+    split = lambda a: a.unflatten(-1, (heads, D // heads)).transpose(1, 2)
+    qs, ks, vs = split(q), split(k), split(v)
+    run = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    backends = {"flash": SDPBackend.FLASH_ATTENTION, "efficient": SDPBackend.EFFICIENT_ATTENTION,
+                "cuDNN": SDPBackend.CUDNN_ATTENTION}
+    times = {}
+    for name, backend in backends.items():
+        try:
+            with sdpa_kernel([backend]):
+                run()
+                times[name] = time_ms(run)
+        except RuntimeError:  # the backend does not take the call
+            continue
+    if not times:
+        return None, ", scaled_dot_product_attention: no fused backend takes it"
+    best = min(times, key=times.get)
+    with sdpa_kernel([backends[best]]):
+        err = (run().transpose(1, 2).reshape(B, Lq, D).float() - want.float()).abs().max().item()
+    return times[best], (", scaled_dot_product_attention " +
+                         ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()) +
+                         f" (fastest {best}, max|d| vs twin {err:.3e})")
+
+
+def k15_against_formula(got, want, args, where: str) -> None:
+    """K15's own check beside the shared bound: against the float32 formula
+    on the same operands, bf16 within 2 bf16 ulps of its scale and no
+    farther from it than the bf16 twin (``want``, which rounds the scores
+    and P) plus one ulp; float32 within 1e-5 of the scale."""
+    from lfsr_tpu_torch.ops.dense_attention import dot_product_attention
+
+    q, k, v, heads = args
+    bf16 = q.dtype == torch.bfloat16
+    ref = dot_product_attention(q.float(), k.float(), v.float(), heads) if bf16 else want
+    scale = max(1.0, ref.abs().max().item())
+    err = (got.float() - ref).abs().max().item()
+    ok = err <= (2 * 2.0**-8 if bf16 else 1e-5) * scale
+    twin_err = (want.float() - ref).abs().max().item() if bf16 else 0.0
+    if bf16:
+        ok = ok and err <= twin_err + 2.0**-8 * scale
+    log(f"[kernels] K15 {str(q.dtype)[6:]:8s} {where}: vs the float32 formula max|d| {err:.3e} "
+        f"(scale {scale:.3f}" + (f"; the bf16 twin's {twin_err:.3e}" if bf16 else "") + f"): "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, f"K15 {where}: {err} from the float32 formula"
 
 
 def layer_norm_call(x, gamma, beta, add, out_dtype):
@@ -639,7 +732,8 @@ def k3_passes(args, where: str) -> None:
 
 def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     from lfsr_tpu_torch import trace
-    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, depthwise as dw, head
+    from lfsr_tpu_torch.ops import _cuda, block, cross_scan as cs, dense_attention as da
+    from lfsr_tpu_torch.ops import depthwise as dw, head
     from lfsr_tpu_torch.ops import local_attention as la, masked_attention as ma, scan
     from lfsr_tpu_torch.ops import window_attention as wa
     from lfsr_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
@@ -662,6 +756,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K12": (la.local_window_mha, la.local_window_plain),
         "K13": (layer_norm, layer_norm_plain),
         "K14": (scan.conv_silu_fused, scan.conv_silu_plain),
+        "K15": (da.dense_mha, da.dot_product_attention),
     }
     # the JSON line reports each kernel on its model's bf16 path (K6 runs
     # on the flagship's float32 residual stream): K1, K4-K7 and K10 at the
@@ -669,11 +764,11 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
     # them run (K11 its 3x3 d 1 "tap" site there); K2 and K3 at the batch-8
     # train step; K9a at the train shape of its op phase, delta after
     # softplus; K8 at EPIT's default (tiled) eval; K12 at LFT's tiled call;
-    # K13 at LFT's SpaTrans call
+    # K13 at LFT's SpaTrans call; K15 at LF-DET's spatial site
     main = {k: (torch.float32 if k == "K6" else torch.bfloat16,
                 "train" if k in ("K2", "K3", "K9a") else "epit-tiled" if k == "K8"
                 else "synth/d1" if k == "K11" else "lft-tiled" if k == "K12"
-                else "lft-spa" if k == "K13" else "synth")
+                else "lft-spa" if k == "K13" else "lfdet-spa" if k == "K15" else "synth")
             for k in pairs}
     # the kernels with two paths: which one a call takes (each counted in
     # the trace table as launches/<K>/<path>)
@@ -686,6 +781,7 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
         "K11": lambda a: a[3],  # its rounding
         "K12": lambda a: la.kernel_path(a[0].dtype),
         "K14": lambda a: scan.conv_silu_path(a[0], a[0].stride(1)),
+        "K15": lambda a: da.kernel_path(a[0].dtype),
     }
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     for dtype, tol in ((torch.float32, F32_BOUND), (torch.bfloat16, BF16_BOUND)):
@@ -719,6 +815,8 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
                 k11_against_twin(got, want, args, where)
             if name == "K14":
                 k14_against_twin(got, want, where)
+            if name == "K15":  # and against the float32 formula
+                k15_against_formula(got, want, args, where)
             # each output against its own scale (K3's dA sums over L, its du
             # does not); float32 outputs (K2's states, all of K3's) from
             # bf16 inputs are computed in float32 on both sides, K10's from
@@ -741,6 +839,8 @@ def check_kernels(results: dict, only=None, n24_only: bool = False) -> None:
                 library_ms = time_ms(run)
                 lib_note = (f", scaled_dot_product_attention {library_ms:.4f} ms "
                             f"(max|d| vs twin {lib_err:.3e})")
+            if name == "K15":
+                library_ms, lib_note = sdpa_fastest(*args, want)
             del got, want, outs
             err = max(e for e, _ in errs)
             ok = all(np.isfinite(e) and e <= b for (e, _), b in zip(errs, bounds))
@@ -907,9 +1007,11 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     launch (head dim 8) on its CUDA-core kernel and every K12 launch on the
     kernel of ``cfg``'s compute dtype; K13's launches with the code's add
     ``K13_CODE_SHARE`` of its launches (half of LFT's, none of EPIT's);
-    every K14 launch (the flagship's Di 80) on its 16-byte lanes."""
+    every K14 launch (the flagship's Di 80) on its 16-byte lanes; for
+    ``cfg``'s LF-DET, every K15 launch on the kernel of ``cfg``'s compute
+    dtype and every K11 launch (its Mix-FFN convs) "once"."""
     from lfsr_tpu_torch import trace
-    from lfsr_tpu_torch.ops import local_attention, masked_attention
+    from lfsr_tpu_torch.ops import dense_attention, local_attention, masked_attention
 
     k4_paths, k5_paths, k6_paths, k7_paths, k8_paths, k12_paths = (
         trace.counts(f"launches/{k}/") for k in ("K4", "K5", "K6", "K7", "K8", "K12"))
@@ -959,6 +1061,14 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
             assert paths[path] == n > 0 and sum(paths.values()) == n, (what, name, paths, n)
             log(f"[{what}] {name.split()[0]} launches by kernel {paths}: all {n} on the "
                 f"{PATH_NAMES[path]} kernel")
+    if cfg is not None and cfg.model_name == "LF_DET":
+        path = dense_attention.kernel_path(torch.bfloat16 if bf16 else torch.float32)
+        k15, k15_paths = counts["K15 dense_mha"], trace.counts("launches/K15/")
+        assert k15_paths[path] == k15 > 0 and sum(k15_paths.values()) == k15, (what, k15_paths)
+        k11, k11_paths = counts["K11 depthwise_conv"], trace.counts("launches/K11/")
+        assert k11_paths == {"tap": 0, "once": k11}, (what, k11_paths, k11)
+        log(f"[{what}] K15 launches by kernel {k15_paths}: all {k15} on the {PATH_NAMES[path]} "
+            f"kernel; K11's {k11} all {PATH_NAMES['once']}")
 
 
 def check_views(views: dict, scenes, ang: int, s: int, what: str) -> None:
@@ -1659,6 +1769,28 @@ def run_lft(profile: bool = False, eval_paths: bool = True) -> dict:
     return add(*runs)
 
 
+def run_lfdet(profile: bool = False, eval_paths: bool = True) -> dict:
+    """LF-DET's paths: its default tiled eval at the cell's 16 tiles a call
+    and its batch-8 train step. Returns their launches."""
+    from lfsr_tpu_torch.config import Config
+    from lfsr_tpu_torch.models.registry import whole_scene_default
+
+    cfg = Config(model_name="LF_DET", minibatch_for_test=LFT_TILES)
+    assert not whole_scene_default(cfg), "LF-DET's default eval is tiled"
+    assert (cfg.patch_size_for_test, cfg.stride_for_test) == (32, 16), cfg
+    model, sd = seeded_model(cfg, LF_DET_PARAMS)
+    runs = []
+    if eval_paths:
+        if profile:
+            profile_tiled_dispatch(model, cfg)
+        runs.append(run_tiled(model, cfg, LF_DET_PER_FORWARD, "lfdet tiled"))
+    del model
+    torch.cuda.empty_cache()
+    runs.append(run_train(sd, cfg.replace(batch_size=8), LF_DET_PER_FORWARD, profile,
+                          "lfdet train"))
+    return add(*runs)
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1673,8 +1805,8 @@ def main() -> int:
                     help="after the kernel phase run the training phases (every scan_impl's "
                          "for the flagship) and K9a's op only (no eval paths)")
     only = ap.add_mutually_exclusive_group()
-    only.add_argument("--model", choices=("LFMambaX", "EPIT", "LFT"),
-                      help="only this model's kernels and phases (default: both)")
+    only.add_argument("--model", choices=("LFMambaX", "EPIT", "LFT", "LF_DET"),
+                      help="only this model's kernels and phases (default: all)")
     only.add_argument("--scan-impl", choices=tuple(SCAN_IMPL_KERNELS),
                       help="only the flagship's kernel of this scan_impl (K9b or K9c), its "
                            "whole-scene eval phase, beside the 'pallas' dispatches it is held "
@@ -1705,7 +1837,8 @@ def main() -> int:
 
     names = {"LFMambaX": ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9a", "K9b", "K9c", "K10",
                           "K11", "K14"),
-             "EPIT": ("K8", "K13"), "LFT": ("K8", "K12", "K13"), None: None}[args.model]
+             "EPIT": ("K8", "K13"), "LFT": ("K8", "K12", "K13"), "LF_DET": ("K15",),
+             None: None}[args.model]
     if args.scan_impl:
         names = (SCAN_IMPL_KERNELS[args.scan_impl].split()[0],)
     if args.entry_only:
@@ -1735,6 +1868,9 @@ def main() -> int:
     if args.model in (None, "LFT") and not (args.scan_impl or args.entry_only):
         runs.append(run_lft(profile=args.profile, eval_paths=eval_paths))
         lap("LFT")
+    if args.model in (None, "LF_DET") and not (args.scan_impl or args.entry_only):
+        runs.append(run_lfdet(profile=args.profile, eval_paths=eval_paths))
+        lap("LF-DET")
     launches = add(*runs)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

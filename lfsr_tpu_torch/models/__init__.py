@@ -1,1 +1,1 @@
-"""Model zoo of the port: the flagship ``LFMambaX``, ``EPIT`` and ``LFT``."""
+"""Model zoo of the port: the flagship ``LFMambaX``, ``EPIT``, ``LFT`` and ``LF_DET``."""

@@ -92,6 +92,13 @@ def dw_apply(conv: Conv, x: torch.Tensor, dt) -> torch.Tensor:
     return depthwise_conv(x.to(dt), conv.weight, conv.dilation, "tap")
 
 
+def dense(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dt)``: x and the kernel cast to dt, the bias
+    (where the layer has one) cast to dt and added after the product."""
+    y = x.to(dt) @ lin.weight.t().to(dt)
+    return y if lin.bias is None else y + lin.bias.to(dt)
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """torch nn.PixelShuffle on NHWC: [B, H, W, C*r*r] -> [B, H*r, W*r, C]
     (output channel c reads input channel c*r*r + i*r + j)."""

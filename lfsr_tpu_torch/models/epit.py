@@ -29,9 +29,10 @@ import torch.nn as nn
 
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
-from lfsr_tpu_torch.models.common import Conv, LayerNorm, lrelu, pixel_shuffle
+from lfsr_tpu_torch.models.common import Conv, LayerNorm, dense, lrelu, pixel_shuffle
 from lfsr_tpu_torch.models.losses import l1
 from lfsr_tpu_torch.models.registry import register_model
+from lfsr_tpu_torch.ops.dense_attention import dot_product_attention
 from lfsr_tpu_torch.ops.layer_norm import layer_norm
 from lfsr_tpu_torch.ops.layout import sai_to_views, views_to_sai
 from lfsr_tpu_torch.ops.masked_attention import masked_mha_fused, supported
@@ -62,26 +63,6 @@ def band_mask(rows: int, cols: int, k_r: int, k_c: int, device: torch.device) ->
     during evaluation can be saved for a later training step's backward."""
     with torch.inference_mode(False):
         return trace.upload(_band_mask(rows, cols, k_r, k_c), device)
-
-
-def dense(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
-    """flax ``nn.Dense(use_bias=False, dtype=dt)``: x and the kernel cast to dt."""
-    return x.to(dt) @ lin.weight.t().to(dt)
-
-
-def dot_product_attention(q, k, v, mask, heads: int):
-    """flax ``nn.dot_product_attention`` over channel-contiguous heads with
-    an additive [L, L] bias: q scaled by 1/sqrt(hd) and the scores taken in
-    q's dtype, bias added (float32), softmax in float32 cast back to q's
-    dtype, weighted values in q's dtype. q, k, v [B, L, D] -> [B, L, D]."""
-    B, L, D = q.shape
-    hd = D // heads
-    dt = q.dtype
-    split = lambda a: a.reshape(B, L, heads, hd)
-    qs = split(q) / trace.upload(hd**0.5, q.device, dt)
-    s = torch.einsum("bqhd,bkhd->bhqk", qs, split(k))
-    p = torch.softmax(s.float() + mask.float(), dim=-1).to(dt)
-    return torch.einsum("bhqk,bkhd->bqhd", p, split(v)).reshape(B, L, D)
 
 
 class _EPITransformer(nn.Module):
@@ -118,7 +99,7 @@ class _EPITransformer(nn.Module):
         if supported(L, self.spa_dim, self.heads):
             attn = masked_mha_fused(q, k, v, mask, self.heads)
         else:
-            attn = dot_product_attention(q, k, v, mask, self.heads)
+            attn = dot_product_attention(q, k, v, self.heads, mask)
         t = t + dense(self.Dense_4, attn, dt)
         f = self._ln(self.LayerNorm_1, t)
         f = torch.relu(dense(self.Dense_5, f, dt))

@@ -42,8 +42,7 @@ import torch.nn.functional as F
 
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
-from lfsr_tpu_torch.models.common import Conv, LayerNorm, lrelu, pixel_shuffle
-from lfsr_tpu_torch.models.epit import dense
+from lfsr_tpu_torch.models.common import Conv, LayerNorm, dense, lrelu, pixel_shuffle
 from lfsr_tpu_torch.models.losses import l1
 from lfsr_tpu_torch.models.registry import register_model
 from lfsr_tpu_torch.ops.layer_norm import layer_norm

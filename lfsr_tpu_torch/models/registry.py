@@ -1,7 +1,7 @@
 """Model registry of the port (mirrors lfsr_tpu/models/registry.py).
 
 Ported so far: the flagship ``LFMambaX`` (loss ``composite_v8``, whole-scene
-eval by default), ``EPIT`` and ``LFT`` (L1, tiled eval), each registered with
+eval by default), ``EPIT``, ``LFT`` and ``LF_DET`` (L1, tiled eval), each registered with
 its loss builder (``get_loss``). ``get_model`` builds the
 module without initialising it (parameters are created on the meta device
 and then allocated on ``device``, the card unless the caller asks for the
@@ -43,6 +43,7 @@ def register_model(name: str, loss: Callable, whole_scene_ok: bool = False):
 
 def spec(name: str) -> ModelSpec:
     import lfsr_tpu_torch.models.epit  # noqa: F401 — each module registers its model
+    import lfsr_tpu_torch.models.lf_det  # noqa: F401
     import lfsr_tpu_torch.models.lfmambax  # noqa: F401
     import lfsr_tpu_torch.models.lft  # noqa: F401
 

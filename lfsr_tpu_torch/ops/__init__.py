@@ -23,13 +23,18 @@ K14 (the Mamba's causal conv + SiLU, ``scan.conv_silu_fused``, 12 a flagship
 forward under ``'pallas'`` and ``'gated'``) counts ``launches/K14``, split as
 ``launches/K14/vec`` (16-byte lanes of channels) and ``launches/K14/elem``
 (one channel a lane), and runs inside ``_cuda.PlainVJP`` when a gradient is
-wanted. K11-K14 replace no TPU kernel: JAX runs their ops as XLA ops.
+wanted. K15 (LF-DET's attentions with no mask, ``dense_mha``, 20 a forward)
+counts ``launches/K15``, split as ``launches/K15/mma`` (bfloat16 with head
+dim 16, tensor cores) and ``launches/K15/fma`` (CUDA cores), and runs inside
+``_cuda.PlainVJP`` when a gradient is wanted. K11-K15 replace no TPU kernel:
+JAX runs their ops as XLA ops.
 """
 
 from __future__ import annotations
 
 from lfsr_tpu_torch.ops.block import ln_msl
 from lfsr_tpu_torch.ops.cross_scan import cross_scan_gather, cross_scan_scatter
+from lfsr_tpu_torch.ops.dense_attention import dense_mha
 from lfsr_tpu_torch.ops.depthwise import depthwise_conv
 from lfsr_tpu_torch.ops.head import hlfr_tail
 from lfsr_tpu_torch.ops.layer_norm import layer_norm
@@ -105,6 +110,10 @@ KERNELS = {
     "K14 conv_silu_fused": (
         conv_silu_fused, "lfsr_tpu_torch/csrc/conv_silu.cu",
         "none: JAX runs Mamba._conv_silu (lfsr_tpu/models/ssm.py) as XLA elementwise ops",
+    ),
+    "K15 dense_mha": (
+        dense_mha, "lfsr_tpu_torch/csrc/dense_attention.cu",
+        "none: JAX runs flax's dot_product_attention (lfsr_tpu/models/lf_det.py) as XLA ops",
     ),
 }
 

@@ -103,6 +103,12 @@ _SIGNATURES = {
     # xs, its row stride, wconv, its two strides, bconv, xc, B, L, Di, K, run,
     # lanes a CTA, runs a CTA, grid x, grid y, vec, dtype, stream (K14)
     "lfsr_conv_silu": [_P, _S, _P, _S, _S, _P, _P] + [_I] * 11 + [_P],
+    # q, k, v, o, B, Lq, Lk, D, k/v row spacing, heads, qscale, dtype, stream
+    # (K15 on the CUDA cores)
+    "lfsr_dense_mha": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, o, B, Lq, Lk, D, k/v row spacing, channels, sequences and
+    # query rows a CTA, qscale, stream (K15 on the tensor cores)
+    "lfsr_dense_mha_mma": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

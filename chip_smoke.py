@@ -153,10 +153,15 @@ Phases (any failure exits non-zero):
    K12 launch of the bf16 phases on its tensor-core kernel, of the float32
    gradient check on its CUDA-core one; every K8 launch (head dim 8) on its
    CUDA-core one.
-9. LF-DET (64 channels, 4 mix blocks, bf16, seeded init), its default
+9. LF-DET (64 channels, 4 mix blocks, bf16, seeded init): its biased
+   products at the six shapes of a 16-tile call (``biased_product``, the
+   bias in the product's epilogue), each within a bf16 ulp of the float32
+   formula and launching no elementwise kernel, timed beside the plain
+   product and the product + broadcast add it replaces; its default
    tiled ``evaluate_sets`` at the cell's 32 / 16 patches, 16 a call, of
    one 512^2-HR scene (4 calls: K15 20 launches a call, K13 48, K11 20,
-   read after a count reset, nothing else) against the plain twins, and
+   108 biased products, read after a count reset, nothing else) against
+   the plain twins, and
    its batch-8 train step (L1, augmentation, masking, DropPath, AdamW; the
    same launches a step), the NaN-skip and one float32 step's gradients
    kernels vs twins; every K15 launch of the bf16 phases on its
@@ -242,6 +247,14 @@ LFT_PARAMS, LFT_TILES = 1_163_392, 16  # its parameters; tiles a call, as in lft
 # only (the gradients are the plain twins')
 LF_DET_PER_FORWARD = {"K15 dense_mha": 20, "K13 layer_norm": 48, "K11 depthwise_conv": 20}
 LF_DET_PARAMS, LF_DET_HEADS = 1_686_668, 4
+# ... and its 108 biased products a forward (``dense/bias_epilogue``): q, kv,
+# out and the Mix-FFN's two in each of 20 blocks, the 8 spatial reductions
+LF_DET_BIAS_EPILOGUE = 108
+# Those products in a 16-tile call of lfdet.tiled_test, bf16: (rows, C_in,
+# C_out); at ws 15 the windows' have 435,600 rows
+LF_DET_PRODUCTS = {"q/out": (409_600, 64, 64), "spa kv": (102_400, 64, 128),
+                   "reduction": (102_400, 256, 64), "ang kv": (409_600, 64, 128),
+                   "ffn in": (409_600, 64, 256), "ffn out": (409_600, 256, 64)}
 # K15's sites in a 16-tile call of lfdet.tiled_test: (B, Lq, Lk), 64 channels
 LF_DET_SITES = {"lfdet-spa": (LFT_TILES * 25, 1024, 256), "lfdet-ws5": (LFT_TILES * 1024, 25, 25),
                 "lfdet-ws10": (LFT_TILES * 256, 100, 100), "lfdet-ws15": (LFT_TILES * 121, 225, 225)}
@@ -994,6 +1007,7 @@ def reset_launch_counts() -> None:
     from lfsr_tpu_torch import trace
 
     trace.reset_counts("launches/")
+    trace.reset_counts("dense/")
 
 
 def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
@@ -1009,7 +1023,9 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
     ``K13_CODE_SHARE`` of its launches (half of LFT's, none of EPIT's);
     every K14 launch (the flagship's Di 80) on its 16-byte lanes; for
     ``cfg``'s LF-DET, every K15 launch on the kernel of ``cfg``'s compute
-    dtype and every K11 launch (its Mix-FFN convs) "once"."""
+    dtype, every K11 launch (its Mix-FFN convs) "once" and
+    ``LF_DET_BIAS_EPILOGUE`` biased products a forward (K15's launches / 20);
+    no biased product for any other model."""
     from lfsr_tpu_torch import trace
     from lfsr_tpu_torch.ops import dense_attention, local_attention, masked_attention
 
@@ -1069,6 +1085,12 @@ def check_counts(counts: dict, want: dict, what: str, cfg=None) -> None:
         assert k11_paths == {"tap": 0, "once": k11}, (what, k11_paths, k11)
         log(f"[{what}] K15 launches by kernel {k15_paths}: all {k15} on the {PATH_NAMES[path]} "
             f"kernel; K11's {k11} all {PATH_NAMES['once']}")
+        epilogues = LF_DET_BIAS_EPILOGUE * k15 // LF_DET_PER_FORWARD["K15 dense_mha"]
+    else:
+        epilogues = 0
+    assert trace.counter("dense/bias_epilogue") == epilogues, (what, epilogues)
+    if epilogues:
+        log(f"[{what}] biased products with the bias in the epilogue: {epilogues}")
 
 
 def check_views(views: dict, scenes, ang: int, s: int, what: str) -> None:
@@ -1769,6 +1791,66 @@ def run_lft(profile: bool = False, eval_paths: bool = True) -> dict:
     return add(*runs)
 
 
+def check_biased_products() -> None:
+    """LF-DET's biased products at ``LF_DET_PRODUCTS``, bf16, the weight
+    [C_out, C_in] transposed as ``dense`` gives it and, like the bias,
+    already bf16 (no cast runs): ``biased_product`` within one bf16 ulp of
+    the float32 formula, plus 1e-5 of its scale for the sums' order; the
+    device kernels of one call, none of them an elementwise one (the bias in
+    the GEMM's epilogue); its time beside the plain product's and that of
+    the product + broadcast add it replaces, the byte bound of its
+    operands and output at 3.35 TB/s, and the host's time to enqueue each
+    form (20 calls, not waited for)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfsr_tpu_torch.models.common import biased_product
+
+    bf = torch.bfloat16
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+
+    def kernels(fn) -> list[str]:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def host_us(fn, n: int = 20) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return us
+
+    for where, (m, k, n) in LF_DET_PRODUCTS.items():
+        x = torch.randn(m, k, device=DEVICE, generator=g).to(bf)
+        w = (torch.randn(n, k, device=DEVICE, generator=g) * k**-0.5).to(bf).t()
+        b = torch.randn(n, device=DEVICE, generator=g).to(bf)
+        epilogue = lambda: biased_product(x, w, b, bf)
+        add = lambda: x @ w + b
+        exact = x.float() @ w.float() + b.float()
+        ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - 8)
+        slack = 1e-5 * exact.abs().max()
+        d_epi, d_add = ((f().float() - exact).abs() for f in (epilogue, add))
+        within = bool((d_epi <= ulp + slack).all())
+        ks, ks_add = kernels(epilogue), kernels(add)
+        t_epi, t_add, t_mm = time_ms(epilogue), time_ms(add), time_ms(lambda: x @ w)
+        h_epi, h_add = host_us(epilogue), host_us(add)
+        bound = 2 * (m * k + k * n + n + m * n) / 3.35e12 * 1e3
+        log(f"[biased] {where} [{m}, {k}] x [{k}, {n}] + bias: epilogue {t_epi:.4f} ms, "
+            f"mm + add {t_add:.4f} ms, mm {t_mm:.4f} ms, bytes bound {bound:.4f} ms; host enqueue "
+            f"{h_epi:.1f} us, mm + add's {h_add:.1f} us; within an "
+            f"ulp of the f32 formula: {within} (mean |d| {d_epi.mean().item():.3e}, mm + add's "
+            f"{d_add.mean().item():.3e}); kernels {[kn[:60] for kn in ks]}, mm + add's "
+            f"{[kn[:60] for kn in ks_add]} ({CARD})")
+        assert within, f"{where}: the epilogue's product is off by more than an ulp"
+        assert not any("elementwise" in kn for kn in ks), (where, ks)
+        del x, w, b, exact, ulp, d_epi, d_add
+    torch.cuda.empty_cache()
+
+
 def run_lfdet(profile: bool = False, eval_paths: bool = True) -> dict:
     """LF-DET's paths: its default tiled eval at the cell's 16 tiles a call
     and its batch-8 train step. Returns their launches."""
@@ -1781,6 +1863,7 @@ def run_lfdet(profile: bool = False, eval_paths: bool = True) -> dict:
     model, sd = seeded_model(cfg, LF_DET_PARAMS)
     runs = []
     if eval_paths:
+        check_biased_products()
         if profile:
             profile_tiled_dispatch(model, cfg)
         runs.append(run_tiled(model, cfg, LF_DET_PER_FORWARD, "lfdet tiled"))

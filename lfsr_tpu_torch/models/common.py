@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.ops.depthwise import check_conv as check_depthwise, depthwise_conv
 
 
@@ -92,11 +93,25 @@ def dw_apply(conv: Conv, x: torch.Tensor, dt) -> torch.Tensor:
     return depthwise_conv(x.to(dt), conv.weight, conv.dilation, "tap")
 
 
+def biased_product(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dt) -> torch.Tensor:
+    """x [..., K] @ w [K, N] + bias [N] in ``dt`` as one ``torch.addmm``
+    over x's rows flattened to 2-D: the bias rides in the product's
+    epilogue (on the card cuBLASLt's bias epilogue, added in float32 before
+    the product's one rounding) and no pass of its own reads the output
+    back. Counted as ``dense/bias_epilogue``."""
+    trace.count("dense/bias_epilogue")
+    y = torch.addmm(bias.to(dt), x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def dense(lin: nn.Linear, x: torch.Tensor, dt) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dt)``: x and the kernel cast to dt, the bias
-    (where the layer has one) cast to dt and added after the product."""
-    y = x.to(dt) @ lin.weight.t().to(dt)
-    return y if lin.bias is None else y + lin.bias.to(dt)
+    """flax ``nn.Dense(dtype=dt)``: x and the kernel cast to dt; the bias,
+    where the layer has one, cast to dt and added in the product's epilogue
+    (``biased_product``: one rounding, where flax rounds the product and
+    then the sum)."""
+    if lin.bias is None:
+        return x.to(dt) @ lin.weight.t().to(dt)
+    return biased_product(x, lin.weight.t(), lin.bias, dt)
 
 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:

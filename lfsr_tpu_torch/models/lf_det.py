@@ -24,9 +24,12 @@ Every attention is K15 (``ops.dense_attention.dense_mha``, 20 a forward),
 every LayerNorm K13 (``ops.layer_norm``, 48 a forward), every Mix-FFN
 depthwise conv K11 in its ``"once"`` rounding (``Conv``). Dense layers keep
 flax's defaults (biases, the compute dtype), LayerNorms flax's (eps 1e-6,
-float32 statistics), GELU flax's tanh form. DropPath (per sample, rate 0.1
-i / 7 over the 8 slots; the angular branches take a block's second) acts in
-train mode only and draws from the forward's ``generator``. Submodule and
+float32 statistics), GELU flax's tanh form. The Dense layers' biases and
+the spatial reduction's ride in the products' epilogues
+(``common.biased_product``, 108 a forward: one rounding where flax rounds
+twice). DropPath (per sample, rate 0.1 i / 7 over the 8 slots; the angular
+branches take a block's second) acts in train mode only and draws from the
+forward's ``generator``. Submodule and
 parameter names follow the flax scopes (``_MixBlock_2._AngularWindows_1.
 _Block_0._Attention_0.Dense_1``), so ``bridge`` maps the JAX tree onto
 this one; it evaluates tiled (``whole_scene_ok`` False), as in the JAX
@@ -38,7 +41,8 @@ around K15), ``model.ang`` (one a mix block, children ``model.ang.windows``
 around each gather and average, ``model.ang.attn`` around K15,
 ``model.ang.fuse``), ``model.mla`` and ``model.output``; the counters
 ``lfdet/windows/<ws>`` count the windows each branch runs and
-``lfdet/windows/edge`` those of them added at an edge.
+``lfdet/windows/edge`` those of them added at an edge, and
+``dense/bias_epilogue`` the biased products.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ import torch.nn.functional as F
 
 from lfsr_tpu_torch import trace
 from lfsr_tpu_torch.config import Config
-from lfsr_tpu_torch.models.common import Conv, LayerNorm, dense, lrelu, pixel_shuffle
+from lfsr_tpu_torch.models.common import (
+    Conv, LayerNorm, biased_product, dense, lrelu, pixel_shuffle,
+)
 from lfsr_tpu_torch.models.losses import l1
 from lfsr_tpu_torch.models.registry import register_model
 from lfsr_tpu_torch.ops.dense_attention import dense_mha
@@ -94,14 +100,15 @@ class _Attention(nn.Module):
         self.Dense_2 = nn.Linear(dim, dim, device=device)
 
     def _reduce(self, x, h: int, w: int):
-        """[B, h*w, C] -> [B, (h//sr)*(w//sr), C]: the strided conv + bias."""
+        """[B, h*w, C] -> [B, (h//sr)*(w//sr), C]: the strided conv, its bias
+        in the product's epilogue."""
         b, _, c = x.shape
         r, dt = self.sr, self.dtype
         hr, wr = h // r, w // r
         g = x.reshape(b, h, w, c)[:, : hr * r, : wr * r]
         g = g.reshape(b, hr, r, wr, r, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hr * wr, r * r * c)
         wk = self.Conv_0.weight.permute(2, 3, 1, 0).reshape(r * r * c, c)  # (ky, kx, c_in) x c_out
-        red = g.to(dt) @ wk.to(dt) + self.Conv_0.bias.to(dt)
+        red = biased_product(g, wk, self.Conv_0.bias, dt)
         ln = self.LayerNorm_0
         return layer_norm(red, ln.weight, ln.bias, None, dt)
 
